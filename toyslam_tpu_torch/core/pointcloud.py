@@ -1,0 +1,129 @@
+"""Fixed-capacity padded point clouds and the voxel downsample (port of
+``toyslam_tpu/core/pointcloud.py``).
+
+A cloud is ``xyzi [N, 4]`` plus a ``mask [N]``; invalid lanes carry the
+``PAD_COORD`` sentinel so they fall outside every voxel query. Shapes stay
+static so that no operation waits on the device for a count.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from toyslam_tpu_torch.ops.segment import (INT_MAX, run_bookkeeping,
+                                           seg_reduce)
+
+# Sentinel coordinate for padded/invalid points: far outside any map.
+PAD_COORD = 1.0e9
+
+
+class PointCloud(NamedTuple):
+    """Padded point cloud: ``xyzi [N, 4]`` + ``mask [N]``."""
+
+    xyzi: torch.Tensor
+    mask: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.xyzi.shape[0]
+
+
+def from_numpy(points: np.ndarray, capacity: int | None = None,
+               dtype=torch.float32, device="cpu") -> PointCloud:
+    """Build a padded PointCloud from a [n, 3] or [n, 4] numpy array;
+    non-finite points become masked sentinels."""
+    points = np.asarray(points)
+    n = points.shape[0]
+    if capacity is None:
+        capacity = n
+    if points.shape[1] == 3:
+        points = np.concatenate([points, np.zeros((n, 1), points.dtype)], 1)
+    finite = np.isfinite(points[:, :3]).all(axis=1)
+    xyzi = np.full((capacity, 4), PAD_COORD, dtype=np.float64)
+    xyzi[:, 3] = 0.0
+    k = min(n, capacity)
+    xyzi[:k] = points[:k]
+    mask = np.zeros((capacity,), dtype=bool)
+    mask[:k] = finite[:k]
+    xyzi[:k][~finite[:k], :3] = PAD_COORD
+    return PointCloud(torch.as_tensor(xyzi, dtype=dtype, device=device),
+                      torch.as_tensor(mask, device=device))
+
+
+def pad_to(cloud: PointCloud, capacity: int) -> PointCloud:
+    """Truncate or pad (with masked sentinel lanes) to ``capacity``."""
+    n = cloud.capacity
+    if n >= capacity:
+        return PointCloud(cloud.xyzi[:capacity], cloud.mask[:capacity])
+    pad = torch.full((capacity - n, 4), PAD_COORD, dtype=cloud.xyzi.dtype,
+                     device=cloud.xyzi.device)
+    pad[:, 3] = 0.0
+    return PointCloud(
+        torch.cat([cloud.xyzi, pad], 0),
+        torch.cat([cloud.mask, torch.zeros(capacity - n, dtype=torch.bool,
+                                           device=cloud.mask.device)], 0))
+
+
+def _min_max(x, y, z, mask):
+    big = torch.tensor(PAD_COORD, dtype=x.dtype, device=x.device)
+    mins = torch.stack([torch.where(mask, c, big).amin() for c in (x, y, z)])
+    maxs = torch.stack([torch.where(mask, c, -big).amax() for c in (x, y, z)])
+    return mins, maxs
+
+
+def _voxel_ids(x, y, z, mask, inv_leaf, min_b, div):
+    """Linear voxel id per point (``i + j*dx + k*dx*dy``, int32 like the
+    reference); invalid points get INT_MAX."""
+    ix = torch.floor(x * inv_leaf).to(torch.int32) - min_b[0]
+    iy = torch.floor(y * inv_leaf).to(torch.int32) - min_b[1]
+    iz = torch.floor(z * inv_leaf).to(torch.int32) - min_b[2]
+    vid = ix + iy * div[0] + iz * (div[0] * div[1])
+    return torch.where(mask, vid, torch.full_like(vid, INT_MAX))
+
+
+def voxel_grid(x, y, z, mask, leaf_size: float):
+    """Bounding voxel grid of the valid points: ``(inv_leaf, min_b, div,
+    vid)`` with int32 ``min_b``/``div`` [3] and per-point ids."""
+    inv_leaf = torch.tensor(1.0 / leaf_size, dtype=x.dtype, device=x.device)
+    mn, mx = _min_max(x, y, z, mask)
+    min_b = torch.floor(mn * inv_leaf).to(torch.int32)
+    max_b = torch.floor(mx * inv_leaf).to(torch.int32)
+    div = max_b - min_b + 1
+    return inv_leaf, min_b, div, _voxel_ids(x, y, z, mask, inv_leaf, min_b,
+                                            div)
+
+
+def voxel_downsample(cloud: PointCloud, leaf_size: float,
+                     capacity: int | None = None,
+                     with_intensity: bool = True) -> PointCloud:
+    """Centroid voxel downsample (pcl::VoxelGrid equivalent).
+
+    Valid lanes come first, one per occupied voxel in ascending voxel-id
+    order, each the mean of its points; voxels beyond ``capacity`` (default:
+    the input capacity) are dropped. ``with_intensity=False`` emits
+    intensity 0 and skips that channel's sums.
+    """
+    V = cloud.capacity if capacity is None else capacity
+    dtype = cloud.xyzi.dtype
+    mask = cloud.mask
+    x, y, z, inten = cloud.xyzi.T
+    _, _, _, vid = voxel_grid(x, y, z, mask, leaf_size)
+    sorted_vid, order = torch.sort(vid, stable=True)
+    in_grid = sorted_vid != INT_MAX
+    zero = torch.zeros((), dtype=dtype, device=vid.device)
+    chans = [x, y, z] + ([inten] if with_intensity else [])
+    vals = torch.stack([in_grid.to(dtype)]
+                       + [torch.where(in_grid, c[order], zero) for c in chans],
+                       1)
+    first, pos, n_unique = run_bookkeeping(sorted_vid)
+    acc, _ = seg_reduce(sorted_vid, vals, first, pos, V)  # [V, C]
+    valid = torch.arange(V, device=vid.device) < n_unique
+    centroid = acc[:, 1:] / torch.clamp(acc[:, :1], min=1.0)
+    if not with_intensity:
+        centroid = torch.cat([centroid, torch.zeros_like(centroid[:, :1])], 1)
+    out = torch.where(valid[:, None], centroid, zero + PAD_COORD)
+    out[:, 3] = torch.where(valid, centroid[:, 3], zero)
+    return PointCloud(out, valid)

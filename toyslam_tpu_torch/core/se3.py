@@ -1,0 +1,78 @@
+"""SE(3) and Euler-chart primitives (port of ``toyslam_tpu/core/se3.py``).
+
+NDT's 6-vector pose chart is ``p = [tx ty tz roll pitch yaw]`` with
+``R = Rx(roll) @ Ry(pitch) @ Rz(yaw)``; ``rot_to_euler_xyz`` follows
+Eigen's ``eulerAngles(0, 1, 2)`` branch (first angle in ``[0, pi]``).
+Every function is dtype-generic and works on any device.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def euler_xyz_to_rot(rpy):
+    """R = Rx(roll) @ Ry(pitch) @ Rz(yaw); rpy: [..., 3] -> [..., 3, 3]."""
+    cx, sx = torch.cos(rpy[..., 0]), torch.sin(rpy[..., 0])
+    cy, sy = torch.cos(rpy[..., 1]), torch.sin(rpy[..., 1])
+    cz, sz = torch.cos(rpy[..., 2]), torch.sin(rpy[..., 2])
+    rows = [
+        [cy * cz, -cy * sz, sy],
+        [cx * sz + sx * sy * cz, cx * cz - sx * sy * sz, -sx * cy],
+        [sx * sz - cx * sy * cz, sx * cz + cx * sy * sz, cx * cy],
+    ]
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+def rot_to_euler_xyz(R):
+    """Inverse of :func:`euler_xyz_to_rot` on Eigen's eulerAngles(0,1,2)
+    branch."""
+    r0 = torch.atan2(R[..., 1, 2], R[..., 2, 2])
+    c2 = torch.sqrt(R[..., 0, 0] ** 2 + R[..., 0, 1] ** 2)
+    flip = r0 > 0  # "!odd && res[0] > 0" branch of Eigen
+    r0_f = torch.where(flip, r0 - math.pi, r0 + math.pi)
+    r1_f = torch.atan2(-R[..., 0, 2], -c2)
+    r1 = torch.atan2(-R[..., 0, 2], c2)
+    a0 = torch.where(flip, r0_f, r0)
+    a1 = torch.where(flip, r1_f, r1)
+    s1, c1 = torch.sin(a0), torch.cos(a0)
+    a2 = torch.atan2(s1 * R[..., 2, 0] - c1 * R[..., 1, 0],
+                     c1 * R[..., 1, 1] - s1 * R[..., 2, 1])
+    return -torch.stack([a0, a1, a2], -1)
+
+
+def make_transform(R, t):
+    """Assemble [..., 4, 4] from [..., 3, 3] rotation and [..., 3]
+    translation."""
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    R = R.expand(batch + (3, 3))
+    t = t.expand(batch + (3,))
+    top = torch.cat([R, t[..., :, None]], -1)
+    bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], -2)
+
+
+def pose6_to_matrix(p):
+    """NDT chart: p = [t(3), roll, pitch, yaw] -> 4x4."""
+    return make_transform(euler_xyz_to_rot(p[..., 3:6]), p[..., 0:3])
+
+
+def matrix_to_pose6(T):
+    """Inverse of :func:`pose6_to_matrix`."""
+    return torch.cat([T[..., :3, 3], rot_to_euler_xyz(T[..., :3, :3])], -1)
+
+
+def svd_solve(A, b):
+    """Least-squares solve of ``A x = b`` through the SVD, with singular
+    values below ``eps * n * max_sv`` treated as zero (Eigen JacobiSVD-style
+    thresholding of the reference Newton step)."""
+    u, s, vt = torch.linalg.svd(A, full_matrices=False)
+    cutoff = torch.finfo(A.dtype).eps * A.shape[-1] * s.amax(-1, keepdim=True)
+    keep = s > cutoff
+    s_inv = torch.where(keep, 1.0 / torch.where(keep, s, torch.ones_like(s)),
+                        torch.zeros_like(s))
+    ub = (u * b[..., :, None]).sum(-2)  # u^T b
+    return (vt * (s_inv * ub)[..., :, None]).sum(-2)  # vt^T (s_inv * u^T b)
