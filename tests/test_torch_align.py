@@ -48,11 +48,12 @@ def scans():
 def _clouds(cloud, dtype):
     xyzi, mask = cloud
     return (jpc.PointCloud(jnp.asarray(xyzi, dtype), jnp.asarray(mask)),
-            convert.point_cloud(xyzi.astype(dtype), mask))
+            convert.point_cloud(xyzi.astype(dtype), mask, device="cpu"))
 
 
 def _port_map(jmap):
-    return convert.ndt_map({k: np.asarray(v) for k, v in jmap._asdict().items()})
+    return convert.ndt_map({k: np.asarray(v) for k, v in jmap._asdict().items()},
+                           device="cpu")
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
@@ -96,7 +97,8 @@ def test_f64_align_matches_golden_oracle():
     for k in range(2):
         pts = xyzi[k, mask[k], :3].astype(np.float64)
         pts = pts[(np.abs(pts[:, 0]) < 20) & (np.abs(pts[:, 1]) < 20)]
-        ds = tpc.voxel_downsample(tpc.from_numpy(pts, dtype=torch.float64),
+        ds = tpc.voxel_downsample(tpc.from_numpy(pts, dtype=torch.float64,
+                                                 device="cpu"),
                                   0.2)
         clouds.append(ds)
     cfg = tndt.NDTConfig(resolution=1.0, grid_capacity=1 << 17,

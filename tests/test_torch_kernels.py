@@ -98,7 +98,8 @@ def _assert_terms(got, want):
 def test_neighbor_hash_matches_jax(case):
     """The plain-torch hash that feeds K1/K2 gives the JAX slots exactly."""
     tm = convert.ndt_map({k: np.asarray(v)
-                          for k, v in case["m"]._asdict().items()})
+                          for k, v in case["m"]._asdict().items()},
+                         device="cpu")
     ev = tndt._Evaluator(tm, torch.from_numpy(case["src"]),
                          torch.from_numpy(case["mask"]), 2.0, OFFS, 0, 0)
     h, nvid, okm = ev.neighbor_hash(case["port"]["params"])

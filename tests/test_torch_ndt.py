@@ -52,11 +52,12 @@ def scans():
 def _clouds(cloud, dtype):
     xyzi, mask = cloud
     return (jpc.PointCloud(jnp.asarray(xyzi, dtype), jnp.asarray(mask)),
-            convert.point_cloud(xyzi.astype(dtype), mask))
+            convert.point_cloud(xyzi.astype(dtype), mask, device="cpu"))
 
 
 def _port_map(jmap):
-    return convert.ndt_map({k: np.asarray(v) for k, v in jmap._asdict().items()})
+    return convert.ndt_map({k: np.asarray(v) for k, v in jmap._asdict().items()},
+                           device="cpu")
 
 
 @pytest.mark.parametrize("dtype,mean_tol,icov_tol",
@@ -102,8 +103,8 @@ def test_hash_alias_stress_matches_jax(rng):
     cfg = jndt.NDTConfig(resolution=1.0, map_capacity=4096,
                          grid_capacity=1 << 14)
     mj = build_j(jpc.from_numpy(xyzi, capacity=len(pts)), cfg)
-    mt = tndt.build_ndt_map(tpc.from_numpy(xyzi), convert.ndt_config(
-        cfg._asdict()))
+    mt = tndt.build_ndt_map(tpc.from_numpy(xyzi, device="cpu"),
+                            convert.ndt_config(cfg._asdict()))
     valid = mt.valid.numpy()
     np.testing.assert_array_equal(valid, np.asarray(mj.valid))
     ids = mt.unique_ids.numpy()[valid]

@@ -70,8 +70,8 @@ def test_online_steps_match_batch_and_rerun_is_bit_identical(scans):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports, and an align runs, with JAX made
-    unimportable."""
+    """Every module of the port imports, and an NDT, an ICP and a GICP align
+    run, with JAX made unimportable."""
     code = """
 import sys
 sys.modules["jax"] = None
@@ -84,10 +84,14 @@ from toyslam_tpu_torch.core import pointcloud
 from toyslam_tpu_torch.registration import ndt
 pts = np.random.default_rng(0).uniform(-5, 5, (2000, 3))
 pts[:, 2] *= 0.1
-cloud = pointcloud.from_numpy(pts)
+cloud = pointcloud.from_numpy(pts, device="cpu")
 r = ndt.ndt_align(ndt.build_ndt_map(cloud, ndt.NDTConfig(resolution=2.0)),
                   cloud)
 assert r.converged
+from toyslam_tpu_torch.registration import gicp, icp
+small = pointcloud.from_numpy(pts[:500], capacity=512, device="cpu")
+assert icp.icp_align(small, small).converged
+assert gicp.gicp_align(small, small).converged
 assert not any(k == "jax" or k.startswith(("jax.", "toyslam_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("ok")

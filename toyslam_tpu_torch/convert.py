@@ -1,10 +1,10 @@
 """Carry the JAX package's state across to the port.
 
-Takes plain numpy data (``NDTMap._asdict()``, a PointCloud's arrays,
-``NDTConfig._asdict()``, ``OdometryConfig._asdict()``) and returns the
-port's objects on a given device, so that one map built by either package
-can feed both ``ndt_align``s. Imports nothing of JAX: callers convert
-their arrays with ``numpy.asarray`` first.
+Takes plain numpy data (``NDTMap._asdict()``, a PointCloud's arrays, the
+configs' ``_asdict()``) and returns the port's objects, so that one map or
+cloud built by either package can feed both. Tensors go to the card unless
+``device`` names another; without a card the default raises. Imports
+nothing of JAX: callers convert their arrays with ``numpy.asarray`` first.
 """
 
 from __future__ import annotations
@@ -16,6 +16,8 @@ import torch
 
 from toyslam_tpu_torch.core.pointcloud import PointCloud
 from toyslam_tpu_torch.pipelines.odometry import OdometryConfig
+from toyslam_tpu_torch.registration.gicp import GICPConfig
+from toyslam_tpu_torch.registration.icp import ICPConfig
 from toyslam_tpu_torch.registration.ndt import NDTConfig, NDTMap
 
 
@@ -25,20 +27,32 @@ def _tensor(a, device):
     return torch.tensor(np.ascontiguousarray(a), device=device)
 
 
-def ndt_map(fields: Mapping, device="cpu") -> NDTMap:
+def ndt_map(fields: Mapping, device="cuda") -> NDTMap:
     """``NDTMap._asdict()`` of numpy arrays -> the port's NDTMap."""
     return NDTMap(**{k: _tensor(fields[k], device) for k in NDTMap._fields})
 
 
-def point_cloud(xyzi, mask, device="cpu") -> PointCloud:
+def point_cloud(xyzi, mask, device="cuda") -> PointCloud:
     return PointCloud(_tensor(xyzi, device), _tensor(mask, device))
 
 
+def _shared_fields(cls, fields: Mapping):
+    """Keeps the fields ``cls`` has; the JAX package's TPU dispatch knobs
+    (``use_pallas*``, ``repack_pallas``, ``nn_mode``) have no counterpart
+    and are dropped."""
+    return cls(**{k: fields[k] for k in cls._fields if k in fields})
+
+
 def ndt_config(fields: Mapping) -> NDTConfig:
-    """Keeps the shared fields; the TPU dispatch knobs (``use_pallas``,
-    ``repack_pallas``) have no counterpart and are dropped."""
-    return NDTConfig(**{k: fields[k] for k in NDTConfig._fields
-                        if k in fields})
+    return _shared_fields(NDTConfig, fields)
+
+
+def icp_config(fields: Mapping) -> ICPConfig:
+    return _shared_fields(ICPConfig, fields)
+
+
+def gicp_config(fields: Mapping) -> GICPConfig:
+    return _shared_fields(GICPConfig, fields)
 
 
 def odometry_config(fields: Mapping) -> OdometryConfig:

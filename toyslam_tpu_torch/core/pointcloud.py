@@ -32,9 +32,10 @@ class PointCloud(NamedTuple):
 
 
 def from_numpy(points: np.ndarray, capacity: int | None = None,
-               dtype=torch.float32, device="cpu") -> PointCloud:
+               dtype=torch.float32, device="cuda") -> PointCloud:
     """Build a padded PointCloud from a [n, 3] or [n, 4] numpy array;
-    non-finite points become masked sentinels."""
+    non-finite points become masked sentinels. The cloud lies on the card
+    unless ``device`` names another; without a card the default raises."""
     points = np.asarray(points)
     n = points.shape[0]
     if capacity is None:

@@ -1,4 +1,5 @@
-"""SE(3) and Euler-chart primitives (port of ``toyslam_tpu/core/se3.py``).
+"""SE(3), SO(3) and Euler-chart primitives (port of
+``toyslam_tpu/core/se3.py``).
 
 NDT's 6-vector pose chart is ``p = [tx ty tz roll pitch yaw]`` with
 ``R = Rx(roll) @ Ry(pitch) @ Rz(yaw)``; ``rot_to_euler_xyz`` follows
@@ -43,6 +44,28 @@ def rot_to_euler_xyz(R):
     return -torch.stack([a0, a1, a2], -1)
 
 
+def skew(v):
+    """Skew-symmetric matrix [v]x; v: [..., 3] -> [..., 3, 3]."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    zz = torch.zeros_like(x)
+    rows = [[zz, -z, y], [z, zz, -x], [-y, x, zz]]
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+def so3_exp(w):
+    """Rodrigues exponential map; w: [..., 3] -> [..., 3, 3]. Below 1e-7
+    rad the Taylor terms replace sin/theta and (1 - cos)/theta^2."""
+    theta = torch.linalg.norm(w, dim=-1, keepdim=True)[..., None]
+    small = theta < 1e-7
+    K = skew(w)
+    safe = torch.where(small, torch.ones_like(theta), theta)
+    A = torch.where(small, 1.0 - theta**2 / 6.0, torch.sin(safe) / safe)
+    B = torch.where(small, 0.5 - theta**2 / 24.0,
+                    (1.0 - torch.cos(safe)) / safe**2)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(K.shape)
+    return eye + A * K + B * (K @ K)
+
+
 def make_transform(R, t):
     """Assemble [..., 4, 4] from [..., 3, 3] rotation and [..., 3]
     translation."""
@@ -50,9 +73,10 @@ def make_transform(R, t):
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], -1)
-    bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
-    bottom[..., 0, 3] = 1.0
-    return torch.cat([top, bottom], -2)
+    # Made on R's device: writing a Python 1.0 into a CUDA tensor would be
+    # a host-to-device copy that waits on the device.
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:]
+    return torch.cat([top, bottom.expand(batch + (1, 4))], -2)
 
 
 def pose6_to_matrix(p):

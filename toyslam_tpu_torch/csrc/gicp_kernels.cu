@@ -1,0 +1,135 @@
+// GICP Gauss-Newton sums for Hopper (sm_90a): K6 of the port.
+//
+// Replaces the Pallas TPU kernel of toyslam_tpu/ops/gicp_pallas.py:
+//   gicp_terms  <- gicp_terms / _kernel  (gicp_pallas.py:104/35)
+//
+// Per correspondence (source point s, matched target q, symmetric
+// Mahalanobis M, weight w) at the pose (R, t): a = R s, r = a + t - q,
+// M r, B = M S^T and S B with S = skew(a); and the 27 weighted sums of
+// gicp_pallas.py:87-94: gradient [w M r, w a x M r] (6), A_tt = w M upper
+// (6), A_tr = w B row-major (9), A_rr = w S B upper (6).
+//
+// What bounds it: reading 52 bytes per correspondence (1.7 MB at N =
+// 32768) against ~130 flops; at that size a launch costs more than either.
+// Design: one thread per correspondence, structure-of-arrays inputs so a
+// warp's loads are coalesced, the pose as 12 floats in shared memory, and
+// the deterministic block tree of block_sum.cuh into [blocks, 27]
+// partials that the wrapper sums with torch.sum. No float atomics: reruns
+// are bit-identical. Any N works: threads past N contribute zeros.
+//
+// The entry point returns cudaGetLastError() so that the Python wrapper can
+// raise on a refused launch.
+
+#include <cuda_runtime.h>
+
+#include "block_sum.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;  // THREADS in toyslam_tpu_torch/ops/gicp_kernels.py
+constexpr int kTerms = 27;     // 6 gradient + 6 A_tt + 9 A_tr + 6 A_rr
+constexpr int kParams = 12;    // R row-major (9), t (3)
+
+__device__ __forceinline__ void pair_terms(const float* P, float x, float y,
+                                           float z, float qx, float qy,
+                                           float qz, const float m[6], float w,
+                                           float t[kTerms]) {
+  const float m00 = m[0], m01 = m[1], m02 = m[2];
+  const float m11 = m[3], m12 = m[4], m22 = m[5];
+  const float ax = P[0] * x + P[1] * y + P[2] * z;
+  const float ay = P[3] * x + P[4] * y + P[5] * z;
+  const float az = P[6] * x + P[7] * y + P[8] * z;
+  const float rx = ax + P[9] - qx;
+  const float ry = ay + P[10] - qy;
+  const float rz = az + P[11] - qz;
+
+  const float mrx = m00 * rx + m01 * ry + m02 * rz;
+  const float mry = m01 * rx + m11 * ry + m12 * rz;
+  const float mrz = m02 * rx + m12 * ry + m22 * rz;
+
+  // B = M S^T = -(M S)
+  const float b00 = -(m01 * az - m02 * ay);
+  const float b01 = -(-m00 * az + m02 * ax);
+  const float b02 = -(m00 * ay - m01 * ax);
+  const float b10 = -(m11 * az - m12 * ay);
+  const float b11 = -(-m01 * az + m12 * ax);
+  const float b12 = -(m01 * ay - m11 * ax);
+  const float b20 = -(m12 * az - m22 * ay);
+  const float b21 = -(-m02 * az + m22 * ax);
+  const float b22 = -(m02 * ay - m12 * ax);
+
+  // S B, upper triangle
+  const float c00 = -az * b10 + ay * b20;
+  const float c01 = -az * b11 + ay * b21;
+  const float c02 = -az * b12 + ay * b22;
+  const float c11 = az * b01 - ax * b21;
+  const float c12 = az * b02 - ax * b22;
+  const float c22 = -ay * b02 + ax * b12;
+
+  t[0] = w * mrx;
+  t[1] = w * mry;
+  t[2] = w * mrz;
+  t[3] = w * (ay * mrz - az * mry);
+  t[4] = w * (az * mrx - ax * mrz);
+  t[5] = w * (ax * mry - ay * mrx);
+  t[6] = w * m00;
+  t[7] = w * m01;
+  t[8] = w * m02;
+  t[9] = w * m11;
+  t[10] = w * m12;
+  t[11] = w * m22;
+  t[12] = w * b00;
+  t[13] = w * b01;
+  t[14] = w * b02;
+  t[15] = w * b10;
+  t[16] = w * b11;
+  t[17] = w * b12;
+  t[18] = w * b20;
+  t[19] = w * b21;
+  t[20] = w * b22;
+  t[21] = w * c00;
+  t[22] = w * c01;
+  t[23] = w * c02;
+  t[24] = w * c11;
+  t[25] = w * c12;
+  t[26] = w * c22;
+}
+
+__global__ void __launch_bounds__(kThreads)
+gicp_terms_kernel(const float* __restrict__ params,
+                  const float* __restrict__ xyz, const float* __restrict__ q,
+                  const float* __restrict__ m6, const float* __restrict__ w,
+                  float* __restrict__ partials, int n) {
+  __shared__ float P[kParams];
+  if (threadIdx.x < kParams) P[threadIdx.x] = params[threadIdx.x];
+  __syncthreads();
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  float t[kTerms];
+  if (i < n) {
+    const size_t nn = static_cast<size_t>(n);
+    float m[6];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) m[c] = m6[c * nn + i];
+    pair_terms(P, xyz[i], xyz[nn + i], xyz[2 * nn + i], q[i], q[nn + i],
+               q[2 * nn + i], m, w[i], t);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kTerms; ++c) t[c] = 0.0f;
+  }
+  block_sum_store<kTerms, kThreads>(t, partials);
+}
+
+}  // namespace
+
+extern "C" int gicp_terms(const void* params, const void* xyz, const void* q,
+                          const void* m6, const void* w, void* partials,
+                          long long n, void* stream) {
+  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  gicp_terms_kernel<<<blocks, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(params), static_cast<const float*>(xyz),
+      static_cast<const float*>(q), static_cast<const float*>(m6),
+      static_cast<const float*>(w), static_cast<float*>(partials),
+      static_cast<int>(n));
+  return static_cast<int>(cudaGetLastError());
+}

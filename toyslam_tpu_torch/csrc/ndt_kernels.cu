@@ -18,14 +18,16 @@
 // (offset, point) pair, offset-major like the JAX layout. Vectorised
 // per-point loops over K and warp-level reductions are later work.
 //
-// Sums are deterministic: each block reduces its 28 terms by a fixed
-// shared-memory tree and writes one row of [num_blocks, 28] partials; the
-// caller finishes with a torch.sum over blocks. No float atomics.
+// Sums are deterministic: each block reduces its 28 terms by the fixed
+// shared-memory tree of block_sum.cuh into one row of [num_blocks, 28]
+// partials; the caller finishes with a torch.sum over blocks.
 //
 // Every entry point returns cudaGetLastError() so that the Python wrapper
 // can raise on a refused launch.
 
 #include <cuda_runtime.h>
+
+#include "block_sum.cuh"
 
 namespace {
 
@@ -149,25 +151,6 @@ __device__ __forceinline__ void pair_terms(const float* P, float x, float y,
   }
 }
 
-// Fixed-order block tree over kThreads threads -> one row of partials.
-__device__ __forceinline__ void block_reduce_store(const float t[kTerms],
-                                                   float* __restrict__ partials) {
-  __shared__ float red[kTerms][kThreads];
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int c = 0; c < kTerms; ++c) red[c][tid] = t[c];
-  __syncthreads();
-#pragma unroll
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) {
-#pragma unroll
-      for (int c = 0; c < kTerms; ++c) red[c][tid] += red[c][tid + stride];
-    }
-    __syncthreads();
-  }
-  if (tid < kTerms) partials[blockIdx.x * kTerms + tid] = red[tid][0];
-}
-
 __device__ __forceinline__ void load_params(const float* __restrict__ params,
                                             float* P) {
   for (int j = threadIdx.x; j < kParams; j += blockDim.x) P[j] = params[j];
@@ -195,7 +178,7 @@ terms_gathered_kernel(const float* __restrict__ params,
 #pragma unroll
     for (int c = 0; c < kTerms; ++c) t[c] = 0.0f;
   }
-  block_reduce_store(t, partials);
+  block_sum_store<kTerms, kThreads>(t, partials);
 }
 
 // K2: gather + gate -> compact [10, K*N] stats (offset-major).
@@ -232,7 +215,7 @@ terms_packed_kernel(const float* __restrict__ params,
 #pragma unroll
     for (int c = 0; c < kTerms; ++c) t[c] = 0.0f;
   }
-  block_reduce_store(t, partials);
+  block_sum_store<kTerms, kThreads>(t, partials);
 }
 
 inline int num_blocks(long long kn) {

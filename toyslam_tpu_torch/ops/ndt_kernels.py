@@ -7,9 +7,7 @@ tensors, or raises; there is no fallback. The kernels are float32 only;
 the plain versions are dtype-generic and compute exactly what the JAX jnp
 path computes (``toyslam_tpu/registration/ndt.py:782-795, 885-998``).
 
-The CUDA source is compiled by ``nvcc`` at first use into
-``toyslam_tpu_torch/_build/`` (a shared library with a plain C interface,
-loaded with ctypes) and rebuilt whenever the source changes.
+The CUDA source is built by ``ops/_cuda.build`` at first use.
 
 Layouts (offset-major, as in the JAX package):
   params [83]: d1, d2, T[:3, :] row-major, j_tab [8, 3], h_tab [15, 3];
@@ -21,13 +19,11 @@ Layouts (offset-major, as in the JAX package):
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
+
+from toyslam_tpu_torch.ops import _cuda
 
 N_TERMS = 28  # 1 score + 6 gradient + 21 Hessian upper triangle
 N_PARAMS = 83
@@ -38,11 +34,7 @@ THREADS = 256  # kThreads in csrc/ndt_kernels.cu
 LAUNCHES = {"ndt_terms_gathered": 0, "ndt_gather_repack": 0,
             "ndt_terms_packed": 0}
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "ndt_kernels.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCE = _cuda.CSRC / "ndt_kernels.cu"
 _lib = None
 
 
@@ -164,85 +156,36 @@ def ndt_terms_gathered_plain(params, xyz, table, h, nvid, okm):
 # --------------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
-            "/usr/local/cuda/bin/nvcc"]:
-        if os.path.isfile(cand):
-            return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-    return found
-
-
 def build() -> Path:
-    """Compile ``csrc/ndt_kernels.cu`` unless a library built from the same
-    source and flags exists; returns the library path. ``nvcc``'s report
-    (``-Xptxas -v``: registers, shared memory, spills) is kept beside it as
-    ``.log``."""
-    tag = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libndt_kernels_{tag}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+    """Compile ``csrc/ndt_kernels.cu`` unless its library exists; returns
+    the library path (nvcc's report beside it as ``.log``)."""
+    return _cuda.build(SOURCE)[0]
 
 
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
         p, i64 = ctypes.c_void_p, ctypes.c_longlong
-        lib.ndt_terms_gathered.argtypes = [p, p, p, p, p, p, p, i64, i64, p]
-        lib.ndt_gather_repack.argtypes = [p, p, p, p, p, i64, p]
-        lib.ndt_terms_packed.argtypes = [p, p, p, p, i64, i64, p]
-        for fn in (lib.ndt_terms_gathered, lib.ndt_gather_repack,
-                   lib.ndt_terms_packed):
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = _cuda.load(SOURCE, {
+            "ndt_terms_gathered": [p, p, p, p, p, p, p, i64, i64, p],
+            "ndt_gather_repack": [p, p, p, p, p, i64, p],
+            "ndt_terms_packed": [p, p, p, p, i64, i64, p],
+        })
     return _lib
 
 
 def _on_cpu(*tensors) -> bool:
-    """True when every tensor lies on the CPU, False when every one lies on
-    one CUDA device; anything else raises."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on several devices: {devices}")
-    dev = devices.pop()
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"no NDT kernel for device {dev}")
-    return False
-
-
-def _check(name, t, dtype, shape):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+    return _cuda.on_cpu("NDT", *tensors)
 
 
 def _check_pairs(table, h, nvid, okm):
     kn = h.shape[0]
-    _check("table", table, torch.float32, (table.shape[0], 16))
+    _cuda.check("table", table, torch.float32, (table.shape[0], 16))
     if table.data_ptr() % 16:
         raise ValueError("table: rows must be 16-byte aligned")
-    _check("h", h, torch.int32, (kn,))
-    _check("nvid", nvid, torch.int32, (kn,))
-    _check("okm", okm, torch.bool, (kn,))
+    _cuda.check("h", h, torch.int32, (kn,))
+    _cuda.check("nvid", nvid, torch.int32, (kn,))
+    _cuda.check("okm", okm, torch.bool, (kn,))
     if kn >= 2**31:
         raise ValueError(f"{kn} pairs exceed the kernels' int32 indexing")
     return kn
@@ -250,24 +193,11 @@ def _check_pairs(table, h, nvid, okm):
 
 def _check_points(params, xyz, kn):
     n = xyz.shape[1]
-    _check("params", params, torch.float32, (N_PARAMS,))
-    _check("xyz", xyz, torch.float32, (3, n))
+    _cuda.check("params", params, torch.float32, (N_PARAMS,))
+    _cuda.check("xyz", xyz, torch.float32, (3, n))
     if n == 0 or kn % n:
         raise ValueError(f"{kn} pairs are not K x {n} points")
     return n
-
-
-def _raise_on(name, err):
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-
-
-def _stream(t):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
 
 
 def ndt_gather_repack(table, h, nvid, okm):
@@ -278,11 +208,7 @@ def ndt_gather_repack(table, h, nvid, okm):
     out = torch.empty((10, kn), dtype=torch.float32, device=table.device)
     if kn == 0:
         return out
-    with torch.cuda.device(table.device):
-        err = _library().ndt_gather_repack(
-            _ptr(table), _ptr(h), _ptr(nvid), _ptr(okm), _ptr(out), kn,
-            _stream(table))
-    _raise_on("ndt_gather_repack", err)
+    _cuda.launch(_library().ndt_gather_repack, table, h, nvid, okm, out, kn)
     LAUNCHES["ndt_gather_repack"] += 1
     return out
 
@@ -292,16 +218,13 @@ def ndt_terms_packed(params, xyz, stats10):
     if _on_cpu(params, xyz, stats10):
         return ndt_terms_packed_plain(params, xyz, stats10)
     kn = stats10.shape[1]
-    _check("stats10", stats10, torch.float32, (10, kn))
+    _cuda.check("stats10", stats10, torch.float32, (10, kn))
     n = _check_points(params, xyz, kn)
     blocks = -(-kn // THREADS)
     partials = torch.empty((blocks, N_TERMS), dtype=torch.float32,
                            device=xyz.device)
-    with torch.cuda.device(xyz.device):
-        err = _library().ndt_terms_packed(
-            _ptr(params), _ptr(xyz), _ptr(stats10), _ptr(partials), n, kn,
-            _stream(xyz))
-    _raise_on("ndt_terms_packed", err)
+    _cuda.launch(_library().ndt_terms_packed, params, xyz, stats10, partials,
+                 n, kn)
     LAUNCHES["ndt_terms_packed"] += 1
     return partials.sum(0)  # fixed-order reduction over blocks
 
@@ -315,10 +238,7 @@ def ndt_terms_gathered(params, xyz, table, h, nvid, okm):
     blocks = -(-kn // THREADS)
     partials = torch.empty((blocks, N_TERMS), dtype=torch.float32,
                            device=xyz.device)
-    with torch.cuda.device(xyz.device):
-        err = _library().ndt_terms_gathered(
-            _ptr(params), _ptr(xyz), _ptr(table), _ptr(h), _ptr(nvid),
-            _ptr(okm), _ptr(partials), n, kn, _stream(xyz))
-    _raise_on("ndt_terms_gathered", err)
+    _cuda.launch(_library().ndt_terms_gathered, params, xyz, table, h, nvid,
+                 okm, partials, n, kn)
     LAUNCHES["ndt_terms_gathered"] += 1
     return partials.sum(0)  # fixed-order reduction over blocks
