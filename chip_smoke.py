@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``toyslam_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once) and holds each against its plain PyTorch
-version on the card. Then it drives two paths through the entry points a
+version on the card. Then it drives four paths through the entry points a
 user calls, each with the launch counts set to 0 just before it and read
 just after:
 
@@ -13,7 +13,11 @@ just after:
   ``ndt_odometry`` under the shipped ``OdometryConfig`` over 16 generated
   262144-ray scans (kernels K1-K3);
 - registration: ``gicp_align`` and ``icp_align`` on the generated 32 x
-  2048-ray pair, downsampled at 0.1 m and padded to 32768 points (K4-K6).
+  2048-ray pair, downsampled at 0.1 m and padded to 32768 points (K4-K6);
+- the bf16-split ranking diagnostic ``diag.diag_bf16_concat`` at 16384 x
+  16384, all five modes (D1);
+- the row-gather diagnostic ``diag.profile_gather_modes`` at the fleet's
+  shape, 64 lanes x 8192 rows x 16 columns, 57344 ids a lane (D2).
 
 It checks that every align converged and improved on its identity guess
 against the generated ground truth, that the kernels were launched, that
@@ -57,6 +61,7 @@ ATE_MAX_M = 1.0
 # The card's published peaks (H100 SXM at 700 W) for the bounds.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12  # tensor cores, dense
 # Operations per pair, counted from the kernel sources: the NDT terms
 # (csrc/ndt_kernels.cu pair_terms, ~388) plus the block sum's 28 adds; the
 # GICP terms (csrc/gicp_kernels.cu pair_terms, ~117) plus 27 adds; the
@@ -67,6 +72,14 @@ NN_FLOPS_PER_PAIR = 8
 NDT_SRC = "toyslam_tpu_torch/csrc/ndt_kernels.cu"
 NN_SRC = "toyslam_tpu_torch/csrc/nn_kernels.cu"
 GICP_SRC = "toyslam_tpu_torch/csrc/gicp_kernels.cu"
+RANK_SRC = "toyslam_tpu_torch/csrc/ranking_kernels.cu"
+GATHER_SRC = "toyslam_tpu_torch/csrc/gather_kernels.cu"
+# D1's split modes against their plain version, of the largest |s.t|: the
+# same exact bf16 products, summed by the tensor core in place of f32 adds
+# in order (a bf16-level sum would miss by ~2^-9).
+SPLIT_RTOL = 2.0 ** -16
+D1_FLOPS_PER_ENTRY = {"highest": 5, "bf16": 6, "3pass": 20, "concat6": 12,
+                      "concat9": 18}  # 2 K (+ 2 adds for 3pass)
 KERNELS = {  # name -> (source, Pallas kernel it replaces)
     "ndt_terms_gathered": (NDT_SRC, "toyslam_tpu/ops/ndt_pallas.py:271"),
     "ndt_gather_repack": (NDT_SRC, "toyslam_tpu/ops/ndt_pallas.py:323"),
@@ -74,6 +87,18 @@ KERNELS = {  # name -> (source, Pallas kernel it replaces)
     "nearest_neighbor": (NN_SRC, "toyslam_tpu/ops/nn_pallas.py:197"),
     "neg_dist_bf16": (NN_SRC, "toyslam_tpu/ops/nn_pallas.py:152"),
     "gicp_terms": (GICP_SRC, "toyslam_tpu/ops/gicp_pallas.py:104"),
+    "split_dot": (RANK_SRC, "benchmarks/diag_bf16_concat.py:37"),
+    "lane_row_sum": (GATHER_SRC, "benchmarks/profile_gather_modes.py:136"),
+}
+# The CUDA function each kernel launches, as the profiler names it.
+CUDA_NAMES = {
+    "ndt_terms_gathered": "terms_gathered_kernel",
+    "ndt_gather_repack": "gather_repack_kernel",
+    "ndt_terms_packed": "terms_packed_kernel",
+    "nearest_neighbor": "nearest_kernel",
+    "neg_dist_bf16": "neg_dist_kernel",
+    "gicp_terms": "gicp_terms_kernel",
+    "lane_row_sum": "lane_row_sum_kernel",
 }
 
 
@@ -189,6 +214,27 @@ def device_profile(fn, top=6):
             rows[:top])
 
 
+def device_ms_per_launch(fn, kernel, reps=REPS):
+    """Device milliseconds per launch of the CUDA function whose name holds
+    ``kernel``, from torch.profiler over ``reps`` calls of fn after one
+    warm-up call (the wrapper's host work is not in it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.count, e.self_device_time_total) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and kernel in e.key]
+    calls = sum(c for c, _ in rows)
+    check(calls > 0, f"the profiler saw no launch of {kernel}")
+    return sum(t for _, t in rows) / 1e3 / calls
+
+
 def host_wait_ms(fn, spin_ms=50.0):
     """Host milliseconds that fn takes while the card spins for spin_ms on
     work queued before it: about spin_ms if fn waits on the device
@@ -249,8 +295,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from toyslam_tpu_torch.core import pointcloud
-    from toyslam_tpu_torch.ops import _cuda, gicp_kernels, ndt_kernels
-    from toyslam_tpu_torch.ops import nn_kernels
+    from toyslam_tpu_torch.diag import diag_bf16_concat, profile_gather_modes
+    from toyslam_tpu_torch.ops import _cuda, gather_kernels, gicp_kernels
+    from toyslam_tpu_torch.ops import ndt_kernels, nn_kernels, ranking_kernels
     from toyslam_tpu_torch.pipelines import odometry
     from toyslam_tpu_torch.registration import gicp, icp, ndt
     from toyslam_tpu_torch.sim.urban_scans import spinning_lidar_scans
@@ -265,7 +312,8 @@ def main() -> int:
     # 1. Build, one nvcc per source, all at once.
     t0 = time.perf_counter()
     libs = _cuda.build(ndt_kernels.SOURCE, nn_kernels.SOURCE,
-                       gicp_kernels.SOURCE)
+                       gicp_kernels.SOURCE, ranking_kernels.SOURCE,
+                       gather_kernels.SOURCE)
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(lib.name for lib in libs)})")
     for lib in libs:
@@ -458,12 +506,26 @@ def main() -> int:
                                   NDT_FLOPS_PER_PAIR * kn),
     }
     library = {name: None for name in ndt_names}
+    launch_dev_ms = {
+        "ndt_terms_gathered": device_ms_per_launch(
+            lambda: ndt_kernels.ndt_terms_gathered(
+                aparams, aev.xyz, amap.hash_table, *ah),
+            CUDA_NAMES["ndt_terms_gathered"]),
+        "ndt_gather_repack": device_ms_per_launch(
+            lambda: ndt_kernels.ndt_gather_repack(table, h, nvid, okm),
+            CUDA_NAMES["ndt_gather_repack"]),
+        "ndt_terms_packed": device_ms_per_launch(
+            lambda: ndt_kernels.ndt_terms_packed(params, ev.xyz, stats),
+            CUDA_NAMES["ndt_terms_packed"]),
+    }
     print(f"phase 6 timings ({card}), CUDA events, mean of {REPS} after "
-          f"warm-up:")
+          f"warm-up; device time per launch from torch.profiler over {REPS} "
+          f"calls:")
     print("  ndt_terms_gathered at the exact-align shape; the others at the "
           "phase-2 odometry shape")
     for name in ndt_names:
-        print(f"  {name}: kernel {ms[name][0]:.4f} ms, plain "
+        print(f"  {name}: kernel {ms[name][0]:.4f} ms (device "
+              f"{launch_dev_ms[name]:.4f} ms a launch), plain "
               f"{ms[name][1]:.4f} ms, bound {bounds[name][0]:.4f} ms "
               f"({bounds[name][1]})")
     align_ms, r = host_ms(
@@ -662,6 +724,15 @@ def main() -> int:
         NN_FLOPS_PER_PAIR * n * m_cols)
     bounds["gicp_terms"] = bound(nbytes(gparams, prob.xyz, q, m6, w)
                                  + 27 * 4, GICP_FLOPS_PER_PAIR * n)
+    launch_dev_ms["nearest_neighbor"] = device_ms_per_launch(
+        lambda: nn_kernels.nearest_neighbor(moved, prob.tgt_t, prob.tsq),
+        CUDA_NAMES["nearest_neighbor"])
+    launch_dev_ms["neg_dist_bf16"] = device_ms_per_launch(
+        lambda: nn_kernels.neg_dist_bf16(moved, ssq, prob.tgt_t, prob.tsq),
+        CUDA_NAMES["neg_dist_bf16"])
+    launch_dev_ms["gicp_terms"] = device_ms_per_launch(
+        lambda: gicp_kernels.gicp_terms(gparams, prob.xyz, q, m6, w),
+        CUDA_NAMES["gicp_terms"])
     print(f"phase 9 registration timings ({card}), CUDA events, mean of "
           f"{REPS} after warm-up, at N = M = {n}; TF32 off for the plain "
           f"and library calls:")
@@ -670,7 +741,8 @@ def main() -> int:
                            ("gicp_terms", None)):
         lib_txt = (f", library ({lib_name}) {library[name]:.4f} ms"
                    if lib_name else ", no library call")
-        print(f"  {name}: kernel {ms[name][0]:.4f} ms, plain "
+        print(f"  {name}: kernel {ms[name][0]:.4f} ms (device "
+              f"{launch_dev_ms[name]:.4f} ms a launch), plain "
               f"{ms[name][1]:.4f} ms{lib_txt}, bound {bounds[name][0]:.4f} "
               f"ms ({bounds[name][1]})")
     gicp_ms, _ = host_ms(lambda: gicp.gicp_align(source, target, None, gcfg))
@@ -693,14 +765,139 @@ def main() -> int:
             print(f"    {dev_ms:.3f} ms in {calls} calls: {key[:90]}")
 
     launches.update(reg_launches)
+
+    # 10. D1 against its plain version at the diagnostic's full shape, then
+    #     the diagnostic itself (counts reset just before it).
+    d1_n = diag_bf16_concat.N_FULL
+    s_np, t_np = diag_bf16_concat.inputs(d1_n)
+    s = torch.from_numpy(s_np).to(dev)
+    tt = torch.from_numpy(np.ascontiguousarray(t_np.T)).to(dev)
+    modes = {}
+    print(f"phase 10 D1 split_dot vs plain at {d1_n} x {d1_n} (bound "
+          f"{SPLIT_RTOL:.3g} of the largest |s.t| for the split modes; "
+          f"highest bit-identical):")
+    for mode in ranking_kernels.MODES:
+        got = ranking_kernels.split_dot(s, tt, mode)
+        want = ranking_kernels.split_dot_plain(s, tt, mode)
+        same = float((got.view(torch.int32) == want.view(torch.int32))
+                     .double().mean())
+        diff = float((got - want).abs().max())
+        rel = diff / float(want.abs().max())
+        check(bool(torch.isfinite(got).all()), f"split_dot {mode}: non-finite")
+        print(f"  {mode}: bit-identical share {same:.6f}, max abs diff "
+              f"{diff:.4g}, relative to the largest |s.t| {rel:.4g}")
+        if mode == "highest":
+            check(same == 1.0, "split_dot highest is not bit-identical to "
+                               "its plain version")
+        check(rel <= SPLIT_RTOL, f"split_dot {mode}: {rel:.3g} > "
+                                 f"{SPLIT_RTOL:.3g} from its plain version")
+        modes[mode] = {"bit_identical_share": same, "max_abs_err": diff}
+        del got, want
+    ranking_kernels.reset_launch_counts()
+    d1 = diag_bf16_concat.run(d1_n, "cuda", REPS)
+    d1_launch = dict(ranking_kernels.LAUNCHES)
+    print(f"  diag_bf16_concat ({d1['device']}): launches {d1_launch}")
+    check(all(v > 0 for v in d1_launch.values()),
+          "a mode of D1 was never launched in the diagnostic")
+    card = card_line()
+    print(f"  timings ({card}), CUDA events, mean of {REPS} after warm-up; "
+          f"library: one torch.mm of the f32-upcast split operands, TF32 "
+          f"off; error vs the f64 oracle on the {diag_bf16_concat.N_ACC} "
+          f"slab:")
+    d1_bytes = nbytes(s, tt) + 4 * d1_n * d1_n
+    for mode in ranking_kernels.MODES:
+        ops = ([(s, tt)] if mode == "highest" else
+               ranking_kernels.split_operands(s, tt, "concat9"
+                                              if mode == "3pass" else mode))
+        a, b = ops[0]
+        t_bytes = d1_bytes / PEAK_BYTES_S
+        peak = PEAK_F32_FLOPS if mode == "highest" else PEAK_BF16_FLOPS
+        t_ops = D1_FLOPS_PER_ENTRY[mode] * d1_n * d1_n / peak
+        modes[mode].update(
+            launches=d1_launch[mode],
+            max_rel_err_f64=d1[mode]["max_rel_err"],
+            ms=d1[mode]["ms_per_pass"],
+            plain_ms=cuda_ms(lambda m=mode: ranking_kernels.split_dot_plain(
+                s, tt, m)),
+            library_ms=cuda_ms(lambda a=a, b=b: torch.mm(a, b)),
+            device_ms=device_ms_per_launch(
+                lambda m=mode: ranking_kernels.split_dot(s, tt, m),
+                "highest_kernel" if mode == "highest"
+                else "split_mma_kernel"),
+            bound_ms=1e3 * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        r = modes[mode]
+        print(f"  {mode}: max_rel_err {r['max_rel_err_f64']:.4g}; kernel "
+              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms a launch), "
+              f"plain {r['plain_ms']:.4f} ms, library (K "
+              f"{a.shape[1]}) {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    del s, tt, ops, a, b
+    # The kernels line gives D1's slowest mode; every mode is under "modes".
+    slowest = max(modes, key=lambda k: modes[k]["ms"])
+    launches["split_dot"] = sum(d1_launch.values())
+    err["split_dot"] = max(r["max_abs_err"] for r in modes.values())
+    ms["split_dot"] = (modes[slowest]["ms"], modes[slowest]["plain_ms"])
+    library["split_dot"] = modes[slowest]["library_ms"]
+    bounds["split_dot"] = (modes[slowest]["bound_ms"],
+                           modes[slowest]["bound_by"])
+    launch_dev_ms["split_dot"] = modes[slowest]["device_ms"]
+
+    # 11. D2 against its plain version at the fleet's shape, then the
+    #     diagnostic itself (counts reset just before it).
+    table_np, ids_np, _ = profile_gather_modes.inputs()
+    gtab = torch.from_numpy(table_np).to(dev)
+    gids = torch.from_numpy(ids_np).to(dev)
+    rows = gids.numel()
+    got = gather_kernels.lane_row_sum(gids, gtab)
+    want = gather_kernels.lane_row_sum_plain(gids, gtab)
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          "D2 lane_row_sum is not bit-identical to its plain version")
+    err["lane_row_sum"] = float((got - want).abs().max())
+    print(f"phase 11 D2 lane_row_sum vs plain at {tuple(gtab.shape)} tables, "
+          f"ids {tuple(gids.shape)}: bit-identical")
+    gather_kernels.reset_launch_counts()
+    d2 = profile_gather_modes.run(device="cuda")
+    launches["lane_row_sum"] = gather_kernels.LAUNCHES["lane_row_sum"]
+    print(f"  profile_gather_modes ({d2['device']}): launches "
+          f"{gather_kernels.LAUNCHES}")
+    check(launches["lane_row_sum"] > 0, "D2 was never launched in the "
+                                        "diagnostic")
+    check(d2["kernel_matches"] and d2["flat_matches"],
+          "profile_gather_modes: a mode disagrees")
+    bounds["lane_row_sum"] = bound(nbytes(gids, gtab) + 4 * rows,
+                                   15 * rows)
+    ms["lane_row_sum"] = (
+        d2["kernel_ns_per_row"] * rows / 1e6,
+        cuda_ms(lambda: gather_kernels.lane_row_sum_plain(gids, gtab)))
+    library["lane_row_sum"] = d2["batched_ns_per_row"] * rows / 1e6
+    launch_dev_ms["lane_row_sum"] = device_ms_per_launch(
+        lambda: gather_kernels.lane_row_sum(gids, gtab),
+        CUDA_NAMES["lane_row_sum"])
+    card = card_line()
+    print(f"  ns/row ({card}), CUDA events, mean of {REPS} calls after "
+          f"warm-up; bound {1e6 * bounds['lane_row_sum'][0] / rows:.4f} "
+          f"ns/row ({bounds['lane_row_sum'][1]}: ids, sums and tables once; "
+          f"the gathered rows are {64 * rows / 1e6:.1f} MB of L2 traffic):")
+    for key, value in d2.items():
+        if key.endswith("_ns_per_row"):
+            print(f"    {key}: {value:.4f}")
+    print(f"  kernel {ms['lane_row_sum'][0]:.4f} ms (device "
+          f"{launch_dev_ms['lane_row_sum']:.4f} ms a launch), plain "
+          f"{ms['lane_row_sum'][1]:.4f} ms, library (batched indexing) "
+          f"{library['lane_row_sum']:.4f} ms, bound "
+          f"{bounds['lane_row_sum'][0]:.4f} ms")
+    del got, want, gtab, gids
+
     print(card)
     kernels = [{
         "name": name, "route": "cuda", "source": source_path,
         "replaces": replaces, "launches": launches[name],
         "max_abs_err": err[name], "ms": ms[name][0], "plain_ms": ms[name][1],
         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-        "library_ms": library[name],
+        "library_ms": library[name], "device_ms": launch_dev_ms[name],
     } for name, (source_path, replaces) in KERNELS.items()]
+    kernels[list(KERNELS).index("split_dot")]["modes"] = modes
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""The CUDA kernels K1-K6 against their plain versions on the card.
+"""The CUDA kernels K1-K6, D1 and D2 against their plain versions on the
+card.
 
 Needs a CUDA device and ``nvcc``; every test skips without a card. The
 file imports no JAX, so it runs on a machine that has only the port:
@@ -15,6 +16,11 @@ of the row's scale; K5 within 1 bf16 ulp on 99.9 % of the valid entries
 1e-4 of the largest sum of their group. A GICP align on the card within
 1e-3 m / 1e-3 rad of the same align on the CPU (a bf16 tie can swap a
 covariance neighbour; the CPU and the card break top-k ties differently).
+D1: ``highest`` bit-identical; the split modes within 2^-16 of the largest
+|s.t| (the same exact bf16 products, summed by the tensor core in place of
+the plain version's f32 adds; a bf16-level sum would miss by ~2^-9). D2
+bit-identical (the same tree of f32 adds). Both at ragged shapes: no shape
+gate.
 """
 
 import numpy as np
@@ -23,7 +29,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from toyslam_tpu_torch.core import pointcloud  # noqa: E402
-from toyslam_tpu_torch.ops import gicp_kernels, nn_kernels  # noqa: E402
+from toyslam_tpu_torch.ops import gather_kernels, gicp_kernels  # noqa: E402
+from toyslam_tpu_torch.ops import nn_kernels, ranking_kernels  # noqa: E402
 from toyslam_tpu_torch.ops import ndt_kernels  # noqa: E402
 from toyslam_tpu_torch.registration import gicp, ndt  # noqa: E402
 from toyslam_tpu_torch.sim.urban_scans import spinning_lidar_scans  # noqa: E402
@@ -165,3 +172,44 @@ def test_gicp_align_on_card_matches_cpu(cuda, clouds):
                                atol=1e-3)
     np.testing.assert_allclose(b.transform[:3, :3], a.transform[:3, :3],
                                atol=1e-3)
+
+
+SPLIT_RTOL = 2.0 ** -16  # D1 split modes vs plain, of the largest |s.t|
+
+
+@pytest.mark.parametrize("mode", ranking_kernels.MODES)
+def test_split_dot_matches_plain_on_card(cuda, mode):
+    rng = np.random.default_rng(5)
+    ranking_kernels.reset_launch_counts()
+    for n, m in ((1000, 3000), (37, 3001)):  # ragged; 3001: scalar stores
+        s = torch.from_numpy(rng.uniform(-120, 120, (n, 3)).astype(
+            np.float32)).to(cuda)
+        t_t = torch.from_numpy(rng.uniform(-120, 120, (3, m)).astype(
+            np.float32)).to(cuda)
+        got = ranking_kernels.split_dot(s, t_t, mode)
+        want = ranking_kernels.split_dot_plain(s, t_t, mode)
+        assert got.shape == (n, m) and bool(torch.isfinite(got).all())
+        if mode == "highest":
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        else:
+            scale = float(want.abs().max())
+            assert float((got - want).abs().max()) <= SPLIT_RTOL * scale
+    assert ranking_kernels.LAUNCHES == {
+        k: 2 if k == mode else 0 for k in ranking_kernels.MODES}
+
+
+def test_lane_row_sum_matches_plain_on_card(cuda):
+    rng = np.random.default_rng(6)
+    gather_kernels.reset_launch_counts()
+    table = torch.from_numpy(rng.normal(size=(3, 1000, 16)).astype(
+        np.float32)).to(cuda)
+    for shape in ((3, 1001), (3, 7, 11)):
+        ids = torch.from_numpy(rng.integers(-1100, 1100, size=shape).astype(
+            np.int32)).to(cuda)
+        got = gather_kernels.lane_row_sum(ids, table)
+        want = gather_kernels.lane_row_sum_plain(ids, table)
+        assert got.shape == shape
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert gather_kernels.LAUNCHES == {"lane_row_sum": 2}
+    with pytest.raises(TypeError):
+        gather_kernels.lane_row_sum(ids.long(), table)
