@@ -38,6 +38,7 @@ from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from toyslam_tpu_torch.diag import diag_bf16_concat  # noqa: E402
 from toyslam_tpu_torch.diag import profile_gather_modes  # noqa: E402
+from toyslam_tpu_torch.diag import k4_ablation  # noqa: E402
 from toyslam_tpu_torch.ops import gather_kernels, ranking_kernels  # noqa: E402
 
 D1_RTOL = 5e-7  # of the largest |s.t|
@@ -203,3 +204,24 @@ def test_diag_entry_points_need_a_card(main):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--n", "8"] if main is diag_bf16_concat.main else
              ["--lanes", "1", "--cap", "8", "--nk", "8"])
+
+
+@pytest.mark.parametrize("name", list(k4_ablation.VARIANTS))
+def test_k4_ablation_edits_apply(name):
+    """Each variant's edits meet the kernel source once each (they raise
+    otherwise); the copy includes the shared header by absolute path."""
+    text = k4_ablation.variant_source(name)
+    assert k4_ablation.HEADER not in text and "mma_split.cuh" in text
+    changed = text.replace(str(k4_ablation._cuda.CSRC / "mma_split.cuh"),
+                           "mma_split.cuh")
+    base = k4_ablation.nn_kernels.SOURCE.read_text()
+    assert (changed == base) == (name == "as_built")
+    for _, new in k4_ablation.VARIANTS[name]:
+        assert new in text
+
+
+def test_k4_ablation_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the ablation runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        k4_ablation.main(["--reps", "1", "--rounds", "1"])

@@ -4,7 +4,8 @@ toyslam_tpu_torch.diag.<name>``), and the timer they share.
 ``diag_bf16_concat`` measures how accurately bf16 splits rank ``s . t``
 (kernel D1); ``profile_gather_modes`` measures row-gather cost in ns/row
 (kernel D2). Both run on the card unless ``--device cpu`` asks for the
-CPU, and raise without a card.
+CPU, and raise without a card. ``k4_ablation`` times K4 with its pass-2
+skipping mechanisms taken out; it needs the card.
 """
 
 from __future__ import annotations

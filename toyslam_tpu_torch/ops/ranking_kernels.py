@@ -89,6 +89,22 @@ def split_dot_plain(s, t_t, mode):
     return st
 
 
+def sum_error(got, s, t_t, mode):
+    """How a split mode's result ``got`` misses the exact sum of its own
+    bf16 products: ``[N, M]`` f64 ``|got - sum_k a_k b_k| / sum_k |a_k
+    b_k|`` (the products are exact in f64 and their f64 sum misses by
+    ~2^-52 of the magnitudes). On the card it is the tensor core's
+    accumulation error, which K4's margin bounds (``csrc/nn_kernels.cu``)."""
+    exact = mags = None
+    for a, b in split_operands(s, t_t, mode):
+        a, b = a.double(), b.double()
+        e, g = a @ b, a.abs() @ b.abs()
+        exact, mags = (e, g) if exact is None else (exact + e, mags + g)
+    # 0 / 0 (no nonzero product, no error) is 0.
+    return ((got.double() - exact).abs() / mags).nan_to_num(
+        nan=0.0, posinf=float("inf"))
+
+
 def _library():
     global _lib
     if _lib is None:
