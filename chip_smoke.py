@@ -23,10 +23,13 @@ It checks that every align converged and improved on its identity guess
 against the generated ground truth, that the card's exact NDT align lands
 on the port's f64 align of the same pair on the CPU, that the kernels
 were launched, that the results match the same runs through the plain
-versions (K2, K4 and D2 bit for bit) and are bit-identical on a rerun,
-counts the host syncs and K4's rescored columns, and prints the timings
-with the card's name and power limit. The line before the card's line is
-``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
+versions (K2, K4 and D2 bit for bit; K1's in-kernel neighbour hash bit for
+bit against the plain hash; K1 and K3 at every evaluation of the plain
+odometry) and are bit-identical on a rerun, that one NDT evaluation is
+three device operations, counts the host syncs and K4's rescored columns,
+and prints the timings with the card's name and power limit. The line
+before the card's line is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it. There is no CPU path: without a CUDA
 device the script exits with 1.
 """
@@ -66,11 +69,16 @@ ATE_MAX_M = 1.0
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12  # tensor cores, dense
-# Operations per pair, counted from the kernel sources: the NDT terms
-# (csrc/ndt_kernels.cu pair_terms, ~388) plus the block sum's 28 adds; the
-# GICP terms (csrc/gicp_kernels.cu pair_terms, ~117) plus 27 adds; the
-# ranked distance (3 mul, 2 add, 1 mul, 1 sub, 1 compare or subtract).
-NDT_FLOPS_PER_PAIR = 416
+# Operations counted from the kernel sources. The NDT terms
+# (csrc/ndt_kernels.cu): per point (point_part) the transform 18 and the 8
+# x.j and 15 x.h products 40 + 75, so 133; per pair (add_pair_terms) ~255
+# plus the 28 accumulating adds, so 283; an offset-major count does both on
+# every pair (416). Per pair also the GICP terms (csrc/gicp_kernels.cu
+# pair_terms, ~117) plus 27 adds; the ranked distance (3 mul, 2 add, 1 mul,
+# 1 sub, 1 compare or subtract).
+NDT_FLOPS_PER_POINT = 133
+NDT_FLOPS_TRANSFORM = 18  # the part of it that K1's hash needs
+NDT_FLOPS_PER_PAIR = 283
 GICP_FLOPS_PER_PAIR = 144
 NN_FLOPS_PER_PAIR = 8
 # K4 ranks every pair on the tensor cores: two passes of a depth-16 bf16
@@ -226,25 +234,31 @@ def device_profile(fn, top=6):
             rows[:top])
 
 
-def device_ms_per_launch(fn, kernel, reps=REPS):
+def device_ms_per_launch(fn, kernel, reps=REPS, sessions=3):
     """Device milliseconds per launch of the CUDA function whose name holds
     ``kernel``, from torch.profiler over ``reps`` calls of fn after one
-    warm-up call (the wrapper's host work is not in it)."""
+    warm-up call (the wrapper's host work is not in it). Now and then a
+    profiler session on the card reports no device events at all; such a
+    session is run again, up to ``sessions`` in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [(e.count, e.self_device_time_total) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and kernel in e.key]
-    calls = sum(c for c, _ in rows)
-    check(calls > 0, f"the profiler saw no launch of {kernel}")
-    return sum(t for _, t in rows) / 1e3 / calls
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.count, e.self_device_time_total)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and kernel in e.key]
+        calls = sum(c for c, _ in rows)
+        if calls > 0:
+            return sum(t for _, t in rows) / 1e3 / calls
+    raise SmokeFailure(f"the profiler saw no launch of {kernel} in "
+                       f"{sessions} sessions")
 
 
 def host_wait_ms(fn, spin_ms=50.0):
@@ -268,6 +282,27 @@ def host_wait_ms(fn, spin_ms=50.0):
     waited = 1e3 * (time.perf_counter() - t0)
     torch.cuda.synchronize()
     return waited
+
+
+def hash_check(label, ev, params):
+    """K1's neighbour hash on the card (its check export) against the plain
+    hash: the in-bounds & mask flag equal on every pair, slot and voxel id
+    equal where it holds."""
+    import torch
+
+    from toyslam_tpu_torch.ops import ndt_kernels
+
+    m = ev.map
+    args = (params, ev.xyz, ev.mask, m.min_b, m.div, m.hash_table.shape[0],
+            ev.inv_leaf, ev.offsets)
+    h, nvid, okm = ndt_kernels.ndt_neighbor_hash(*args)
+    ph, pnvid, pokm = ndt_kernels.ndt_neighbor_hash_plain(*args)
+    same = (torch.equal(okm, pokm) and torch.equal(h[okm], ph[okm])
+            and torch.equal(nvid[okm], pnvid[okm]))
+    print(f"  K1 hash vs plain hash ({label}): okm equal on all "
+          f"{okm.numel()} pairs ({int(okm.sum())} in bounds and unmasked), h "
+          f"and nvid equal where it holds: {same}")
+    check(same, f"K1's hash differs from the plain hash ({label})")
 
 
 def terms_err(got, want, groups):
@@ -307,7 +342,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from toyslam_tpu_torch.core import pointcloud
-    from toyslam_tpu_torch.diag import diag_bf16_concat, profile_gather_modes
+    from toyslam_tpu_torch.diag import diag_bf16_concat, ndt_eval_ops
+    from toyslam_tpu_torch.diag import ndt_odometry_edge
+    from toyslam_tpu_torch.diag import profile_gather_modes
     from toyslam_tpu_torch.ops import _cuda, gather_kernels, gicp_kernels
     from toyslam_tpu_torch.ops import ndt_kernels, nn_kernels, ranking_kernels
     from toyslam_tpu_torch.pipelines import odometry
@@ -369,8 +406,11 @@ def main() -> int:
     params = ev.params(p)
     h, nvid, okm = ev.neighbor_hash(params)
     table = m.hash_table
+    k1_args = (params, ev.xyz, ev.mask, table, m.min_b, m.div, ev.inv_leaf,
+               ev.offsets)
     print(f"phase 2 shapes: N {ev.xyz.shape[1]} K {ev.K} pairs {h.numel()} "
           f"table {tuple(table.shape)}")
+    hash_check("odometry scan", ev, params)
     err = {}
     stats = ndt_kernels.ndt_gather_repack(table, h, nvid, okm)
     stats_plain = ndt_kernels.ndt_gather_repack_plain(table, h, nvid, okm)
@@ -384,10 +424,8 @@ def main() -> int:
              ndt_kernels.ndt_terms_packed(params, ev.xyz, stats),
              ndt_kernels.ndt_terms_packed_plain(params, ev.xyz, stats)),
             ("ndt_terms_gathered",
-             ndt_kernels.ndt_terms_gathered(params, ev.xyz, table, h, nvid,
-                                            okm),
-             ndt_kernels.ndt_terms_gathered_plain(params, ev.xyz, table, h,
-                                                  nvid, okm))):
+             ndt_kernels.ndt_terms_gathered(*k1_args),
+             ndt_kernels.ndt_terms_gathered_plain(*k1_args))):
         rel_err, err[name] = terms_err(got, want, NDT_GROUPS)
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite sums")
         check(rel_err <= TERMS_RTOL,
@@ -461,10 +499,18 @@ def main() -> int:
 
     ndt_names = ("ndt_terms_gathered", "ndt_gather_repack",
                  "ndt_terms_packed")
-    plain = {name: getattr(ndt_kernels, name + "_plain")
-             for name in ndt_names}
-    with mock.patch.multiple(ndt_kernels, **plain):
+    # The plain route, with K1 and K3 also run on each of its evaluations'
+    # inputs: the sums held to the plain sums along the plain route's own
+    # path, a check that no convergence decision of an align can flip.
+    along = []
+    with ndt_odometry_edge.plain_route(along):
         out_plain = odometry.ndt_odometry(scans, scan_mask, cfg)
+    along_err = max(e[1] for e in along)
+    print(f"  K1/K3 vs plain at each of the plain route's {len(along)} "
+          f"evaluations: max rel err {along_err:.3g} (bound {TERMS_RTOL})")
+    check(len(along) == int(out_plain.evaluations.sum())
+          and along_err <= TERMS_RTOL,
+          "K1/K3 disagree with plain along the plain odometry's path")
     pp = out_plain.poses.double().numpy()
     dt_max = float(np.abs(pp[:, :3, 3] - poses[:, :3, 3]).max())
     dr_max = max(rotation_angle(a[:3, :3], b[:3, :3])
@@ -487,12 +533,11 @@ def main() -> int:
                          acfg.resolution, ndt._OFFSETS[acfg.search_method],
                          d1, d2)
     aparams = aev.params(res.pose6.numpy())
-    ah = aev.neighbor_hash(aparams)
-    rel_err, abs_err = terms_err(
-        ndt_kernels.ndt_terms_gathered(aparams, aev.xyz, amap.hash_table, *ah),
-        ndt_kernels.ndt_terms_gathered_plain(aparams, aev.xyz,
-                                             amap.hash_table, *ah),
-        NDT_GROUPS)
+    ak1 = (aparams, aev.xyz, aev.mask, amap.hash_table, amap.min_b, amap.div,
+           aev.inv_leaf, aev.offsets)
+    rel_err, abs_err = terms_err(ndt_kernels.ndt_terms_gathered(*ak1),
+                                 ndt_kernels.ndt_terms_gathered_plain(*ak1),
+                                 NDT_GROUPS)
     err["ndt_terms_gathered"] = max(err["ndt_terms_gathered"], abs_err)
     print(f"  ndt_terms_gathered at the exact-align shape (N "
           f"{aev.xyz.shape[1]}, K {aev.K}, table "
@@ -502,7 +547,9 @@ def main() -> int:
           f"ndt_terms_gathered at the exact-align shape: relative error "
           f"{rel_err:.3g} > {TERMS_RTOL}")
 
-    # 6. NDT timings.
+    # 6. NDT timings, K1's hash at the exact-align shape, the bounds and the
+    #    device operations of one evaluation.
+    hash_check("exact-align shape", aev, aparams)
     card = card_line()
     ms = {
         "ndt_gather_repack": (
@@ -517,26 +564,57 @@ def main() -> int:
                 params, ev.xyz, stats))),
     }
     ms["ndt_terms_gathered"] = (
-        cuda_ms(lambda: ndt_kernels.ndt_terms_gathered(
-            aparams, aev.xyz, amap.hash_table, *ah)),
-        cuda_ms(lambda: ndt_kernels.ndt_terms_gathered_plain(
-            aparams, aev.xyz, amap.hash_table, *ah)))
+        cuda_ms(lambda: ndt_kernels.ndt_terms_gathered(*ak1)),
+        cuda_ms(lambda: ndt_kernels.ndt_terms_gathered_plain(*ak1)))
+    ah = aev.neighbor_hash(aparams)
     akn = ah[0].numel()
     kn = h.numel()
+    # The least work: K1 hashes every valid point (the transform), reads
+    # the gate bytes (16 of 64) of each table row an in-bounds pair of one
+    # touches and the stats of each row an open pair touches (48 in all),
+    # does the rest of the per-point part once a point with an open pair
+    # and the per-pair part once an open pair; K3 reads the gate of every
+    # pair and the other nine stats of the open ones, and does the
+    # per-point part once a point with an open pair and the per-pair part
+    # once an open pair.
+    a_valid = int(aev.mask.sum())
+    a_gate = ndt_kernels.ndt_gather_repack_plain(amap.hash_table,
+                                                 *ah)[9] > 0.5
+    a_open_pairs = int(a_gate.sum())
+    a_open_points = int(a_gate.view(aev.K, -1).any(0).sum())
+    a_rows = int(torch.unique(ah[0][ah[2]]).numel())
+    a_open_rows = int(torch.unique(ah[0][a_gate]).numel())
+    gate = stats[9] > 0.5
+    open_pairs = int(gate.sum())
+    open_points = int(gate.view(ev.K, -1).any(0).sum())
     bounds = {
         "ndt_terms_gathered": bound(
-            nbytes(aparams, aev.xyz, amap.hash_table, *ah) + 28 * 4,
-            NDT_FLOPS_PER_PAIR * akn),
+            nbytes(aparams, aev.xyz, aev.mask, amap.min_b, amap.div,
+                   aev.offsets) + 16 * a_rows + 32 * a_open_rows + 28 * 4,
+            NDT_FLOPS_TRANSFORM * a_valid
+            + (NDT_FLOPS_PER_POINT - NDT_FLOPS_TRANSFORM) * a_open_points
+            + NDT_FLOPS_PER_PAIR * a_open_pairs),
         "ndt_gather_repack": bound(nbytes(table, h, nvid, okm)
                                    + 10 * 4 * kn, 0),
+        "ndt_terms_packed": bound(
+            nbytes(params, ev.xyz) + 4 * kn + 36 * open_pairs + 28 * 4,
+            NDT_FLOPS_PER_POINT * open_points
+            + NDT_FLOPS_PER_PAIR * open_pairs),
+    }
+    # The yardstick of the offset-major design: every input in full (the
+    # whole table and K1's h/nvid/okm) and both parts on every pair.
+    per_pair_before = NDT_FLOPS_PER_POINT + NDT_FLOPS_PER_PAIR
+    offset_major_bounds = {
+        "ndt_terms_gathered": bound(
+            nbytes(aparams, aev.xyz, amap.hash_table, *ah) + 28 * 4,
+            per_pair_before * akn),
         "ndt_terms_packed": bound(nbytes(params, ev.xyz, stats) + 28 * 4,
-                                  NDT_FLOPS_PER_PAIR * kn),
+                                  per_pair_before * kn),
     }
     library = {name: None for name in ndt_names}
     launch_dev_ms = {
         "ndt_terms_gathered": device_ms_per_launch(
-            lambda: ndt_kernels.ndt_terms_gathered(
-                aparams, aev.xyz, amap.hash_table, *ah),
+            lambda: ndt_kernels.ndt_terms_gathered(*ak1),
             CUDA_NAMES["ndt_terms_gathered"]),
         "ndt_gather_repack": device_ms_per_launch(
             lambda: ndt_kernels.ndt_gather_repack(table, h, nvid, okm),
@@ -555,6 +633,33 @@ def main() -> int:
               f"{launch_dev_ms[name]:.4f} ms a launch), plain "
               f"{ms[name][1]:.4f} ms, bound {bounds[name][0]:.4f} ms "
               f"({bounds[name][1]})")
+    print(f"  bounds from {NDT_FLOPS_PER_POINT} flops a point "
+          f"({NDT_FLOPS_TRANSFORM} of them the transform) and "
+          f"{NDT_FLOPS_PER_PAIR} a pair: K1 {a_valid} valid points "
+          f"(transformed and hashed), {a_open_points} with an open gate, "
+          f"{a_open_pairs} open of {a_valid * aev.K} pairs of valid points, "
+          f"{a_rows} table rows touched, {a_open_rows} of them open; K3 "
+          f"{open_points} points with an open gate, {open_pairs} open of "
+          f"{kn} pairs")
+    for name, (b_ms, b_by) in offset_major_bounds.items():
+        print(f"  {name}: bound {bounds[name][0]:.4f} ms ({bounds[name][1]}; "
+              f"{bounds[name][0] / launch_dev_ms[name]:.1%} of the device "
+              f"time reached); offset-major yardstick ({per_pair_before} "
+              f"flops on every pair, every input in full) {b_ms:.4f} ms "
+              f"({b_by}; {b_ms / launch_dev_ms[name]:.1%})")
+    evals = {"exact (K1)": ndt_eval_ops.profile_evaluation(
+                 aev, res.pose6.numpy()),
+             "frozen (K3)": ndt_eval_ops.profile_evaluation(ev, p, stats)}
+    for (label, r), name in zip(evals.items(), ("ndt_terms_gathered",
+                                                 "ndt_terms_packed")):
+        print(f"  one {label} evaluation, _Evaluator.derivs under "
+              f"torch.profiler: {r['ops']} device operations, "
+              f"{r['device_ms']:.4f} ms device time: {r['by_name']}")
+        launched = sum(c for key, c in r["by_name"].items()
+                       if CUDA_NAMES[name] in key)
+        check(r["ops"] == 3 and launched == 1,
+              f"one {label} evaluation is not 3 device operations, one of "
+              f"them {CUDA_NAMES[name]}")
     align_ms, r = host_ms(
         lambda: ndt.ndt_align(amap, a_src[1], torch.eye(4), acfg))
     syncs = out2.host_syncs[1:].double()

@@ -39,6 +39,7 @@ from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 from toyslam_tpu_torch.diag import diag_bf16_concat  # noqa: E402
 from toyslam_tpu_torch.diag import profile_gather_modes  # noqa: E402
 from toyslam_tpu_torch.diag import k4_ablation  # noqa: E402
+from toyslam_tpu_torch.diag import ndt_odometry_edge  # noqa: E402
 from toyslam_tpu_torch.ops import gather_kernels, ranking_kernels  # noqa: E402
 
 D1_RTOL = 5e-7  # of the largest |s.t|
@@ -225,3 +226,75 @@ def test_k4_ablation_needs_a_card():
         pytest.skip("this machine has a card: the ablation runs there")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         k4_ablation.main(["--reps", "1", "--rounds", "1"])
+
+
+@pytest.fixture(scope="module")
+def ndt_pair():
+    """The 1 m NDT map of one small generated scan and the next scan."""
+    from toyslam_tpu_torch.core import pointcloud
+    from toyslam_tpu_torch.sim.urban_scans import spinning_lidar_scans
+
+    xyzi, mask, _ = spinning_lidar_scans(4, 2, 32, 1024)
+    clouds = [pointcloud.voxel_downsample(pointcloud.PointCloud(
+        torch.from_numpy(xyzi[k]), torch.from_numpy(mask[k])), 0.3, 8192,
+        with_intensity=False) for k in range(2)]
+    return clouds
+
+
+@pytest.mark.parametrize("frozen", [False, True])
+def test_plain_route_holds_kernels_at_each_evaluation(ndt_pair, frozen):
+    """``plain_route(errors)`` runs the plain versions and, at every K1 or
+    K3 evaluation, the kernel wrapper on the same inputs (on CPU tensors
+    the wrapper is the plain version, so every error is 0, also against
+    the terms' magnitudes); the wrappers are restored after the block."""
+    from toyslam_tpu_torch.ops import ndt_kernels
+    from toyslam_tpu_torch.registration import ndt
+
+    wrappers = (ndt_kernels.ndt_terms_gathered, ndt_kernels.ndt_gather_repack,
+                ndt_kernels.ndt_terms_packed)
+    cfg = ndt.NDTConfig(grid_capacity=1 << 15, map_capacity=8192,
+                        frozen_linesearch=frozen)
+    errors = []
+    with ndt_odometry_edge.plain_route(errors, magnitudes=True):
+        assert ndt_kernels.ndt_terms_packed is not wrappers[2]
+        res = ndt.ndt_align(ndt.build_ndt_map(ndt_pair[0], cfg), ndt_pair[1],
+                            None, cfg)
+    assert res.converged and len(errors) == res.evaluations > 1
+    assert all(rel == 0.0 and mag == 0.0 for _, rel, mag in errors)
+    names = {name for name, _, _ in errors}
+    assert names == ({"ndt_terms_gathered", "ndt_terms_packed"} if frozen
+                     else {"ndt_terms_gathered"})
+    assert (ndt_kernels.ndt_terms_gathered, ndt_kernels.ndt_gather_repack,
+            ndt_kernels.ndt_terms_packed) == wrappers
+
+
+def test_moved_warm_start_moves_one_coordinate():
+    from toyslam_tpu_torch.core import se3
+
+    guess = se3.pose6_to_matrix(torch.tensor(
+        [0.3, -0.1, 0.02, 0.01, -0.02, 0.004], dtype=torch.float64))
+    p0 = se3.matrix_to_pose6(guess)
+    for axis in range(6):
+        p = se3.matrix_to_pose6(ndt_odometry_edge._moved(guess, axis, 1e-6))
+        step = np.zeros(6)
+        step[axis] = 1e-6
+        np.testing.assert_allclose((p - p0).numpy(), step, atol=1e-12)
+
+
+def test_ndt_odometry_edge_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the diagnostic runs there")
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        ndt_odometry_edge.main()
+
+
+def test_magnitude_err_ignores_cancellation():
+    """A sum whose terms cancel: one ulp of its largest term is a large
+    error relative to the sum, a small one relative to the magnitudes."""
+    terms = torch.tensor([[1.0, -1.0, 1e-6], [2.0, 3.0, 0.0]],
+                         dtype=torch.float64)
+    want = terms.sum(1)
+    got = want + torch.tensor([2.0 ** -52, 0.0], dtype=torch.float64)
+    err = ndt_odometry_edge.magnitude_err(got, want, terms)
+    assert err == pytest.approx(2.0 ** -52 / (2.0 + 1e-6))
+    assert float(((got - want).abs() / want.abs()).max()) > 1e-10

@@ -8,8 +8,12 @@ file imports no JAX, so it runs on a machine that has only the port:
 
 Bounds: K2 bit-identical (it does no arithmetic); K1/K3 sums within rtol
 1e-4 of the largest sum of their group (score, gradient, Hessian): f32
-sums over ~10^5 pairs in another order; an NDT align on the card within
-1e-4 m / 1e-5 rad of the same align through the plain versions on the CPU.
+sums over ~10^5 pairs in another order, exactly zero where the plain sums
+are (every point masked, every gate shut), bit-identical on a rerun, one
+device operation a call; K1's neighbour hash bit-equal to the plain hash
+where the mask flag holds, the flag equal everywhere (near voxel faces
+too); an NDT align on the card within 1e-4 m / 1e-5 rad of the same align
+through the plain versions on the CPU.
 K4 bit-identical in both outputs on every row, padded rows included (its
 tensor-core screen only picks the columns that it rescores in f32 as the
 plain version rounds); K5 within 1 bf16 ulp on 99.9 % of the valid
@@ -79,16 +83,167 @@ def test_kernels_match_plain_on_card(cuda, clouds):
     assert 0 < float(stats[9].sum()) < stats.shape[1]
     _close(ndt_kernels.ndt_terms_packed(params, ev.xyz, stats),
            ndt_kernels.ndt_terms_packed_plain(params, ev.xyz, stats))
-    _close(ndt_kernels.ndt_terms_gathered(params, ev.xyz, m.hash_table, h,
-                                          nvid, okm),
-           ndt_kernels.ndt_terms_gathered_plain(params, ev.xyz, m.hash_table,
-                                                h, nvid, okm))
+    k1_args = (params, ev.xyz, ev.mask, m.hash_table, m.min_b, m.div,
+               ev.inv_leaf, ev.offsets)
+    _close(ndt_kernels.ndt_terms_gathered(*k1_args),
+           ndt_kernels.ndt_terms_gathered_plain(*k1_args))
     assert ndt_kernels.LAUNCHES == {"ndt_terms_gathered": 1,
                                     "ndt_gather_repack": 1,
                                     "ndt_terms_packed": 1}
     with pytest.raises(TypeError):
         ndt_kernels.ndt_terms_packed(params.double(), ev.xyz.double(),
                                      stats.double())
+    with pytest.raises(ValueError):  # more offsets than a warp's queue holds
+        ndt_kernels.ndt_terms_packed(params, ev.xyz[:, :1].contiguous(),
+                                     torch.zeros(10, 28, device=cuda))
+
+
+@pytest.fixture(scope="module")
+def ndt_scene(cuda, clouds):
+    """The 1 m map of the first cloud and the second cloud, on the card."""
+    cfg = ndt.NDTConfig(grid_capacity=1 << 15, map_capacity=8192)
+    m = ndt.build_ndt_map(pointcloud.PointCloud(*(t.to(cuda)
+                                                  for t in clouds[0])), cfg)
+    return m, clouds[1].xyzi[:, :3].to(cuda), clouds[1].mask.to(cuda)
+
+
+def _ndt_case(ndt_scene, search, shape="full"):
+    """(K1 operands, K3 operands) at a pose 0.3 m off, for one shape."""
+    m, xyz, mask = ndt_scene
+    table = m.hash_table
+    if shape == "n1":
+        xyz, mask = xyz[:1], mask[:1]
+    elif shape == "ragged_1000":  # neither a multiple of 32 nor of 128
+        xyz, mask = xyz[:1000], mask[:1000]
+    elif shape == "all_masked":
+        mask = torch.zeros_like(mask)
+    elif shape == "gates_shut":  # no row's valid flag is 1
+        table = torch.zeros_like(table)
+    d1, d2, _ = ndt.gauss_coefficients(1.0, 0.55)
+    ev = ndt._Evaluator(m, xyz, mask, 1.0, ndt._OFFSETS[search], d1, d2)
+    params = ev.params(np.array([0.3, 0.0, 0.0, 0.0, 0.0, 0.004],
+                                np.float32))
+    stats = ndt_kernels.ndt_gather_repack_plain(table,
+                                                *ev.neighbor_hash(params))
+    return ((params, ev.xyz, ev.mask, table, m.min_b, m.div, ev.inv_leaf,
+             ev.offsets), (params, ev.xyz, stats))
+
+
+def _k1_k3_match_plain(k1_args, k3_args, zero=False):
+    for name, args in (("ndt_terms_gathered", k1_args),
+                       ("ndt_terms_packed", k3_args)):
+        got = getattr(ndt_kernels, name)(*args)
+        again = getattr(ndt_kernels, name)(*args)
+        want = getattr(ndt_kernels, name + "_plain")(*args)
+        assert got.shape == (28,) and bool(torch.isfinite(got).all())
+        _close(got, want)
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+        if zero:
+            assert not bool(want.any()) and not bool(got.any())
+
+
+NDT_SHAPES = ("full", "n1", "ragged_1000", "all_masked", "gates_shut")
+
+
+@pytest.mark.parametrize("shape", NDT_SHAPES)
+@pytest.mark.parametrize("search", ["DIRECT1", "DIRECT7", "DIRECT27"])
+def test_ndt_sums_match_plain_on_card(cuda, ndt_scene, search, shape):
+    """K1 and K3 against their plain versions, twice each (bit-identical)."""
+    ndt_kernels.reset_launch_counts()
+    _k1_k3_match_plain(*_ndt_case(ndt_scene, search, shape),
+                       zero=shape in ("all_masked", "gates_shut"))
+    assert ndt_kernels.LAUNCHES == {"ndt_terms_gathered": 2,
+                                    "ndt_gather_repack": 0,
+                                    "ndt_terms_packed": 2}
+
+
+def test_ndt_sums_over_several_waves_on_card(cuda, ndt_scene):
+    """More points than one wave of blocks holds (the wrapper's
+    MAX_BLOCKS x THREADS): the grid-stride loop takes each thread round
+    again. The cloud repeated until it spans more than one wave, its valid
+    points in every copy."""
+    m, xyz, mask = ndt_scene
+    reps = -(-ndt_kernels.MAX_BLOCKS * ndt_kernels.THREADS // len(mask)) + 3
+    k1_args, k3_args = _ndt_case((m, xyz.repeat(reps, 1), mask.repeat(reps)),
+                                 "DIRECT7")
+    assert k1_args[1].shape[1] > ndt_kernels.MAX_BLOCKS * ndt_kernels.THREADS
+    _k1_k3_match_plain(k1_args, k3_args)
+
+
+def test_ndt_sums_one_device_operation_a_call(cuda, ndt_scene):
+    from torch.profiler import ProfilerActivity, profile
+
+    k1_args, k3_args = _ndt_case(ndt_scene, "DIRECT7")
+    for fn, args in ((ndt_kernels.ndt_terms_gathered, k1_args),
+                     (ndt_kernels.ndt_terms_packed, k3_args)):
+        fn(*args)  # the stream's counter is made (zeroed) at the first call
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        ops = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert sum(c for _, c in ops) == 1, ops
+
+
+def _face_sources(T, xyz, leaf, n_base=256):
+    """Points of the cloud moved so that their transforms lie within an ulp
+    of voxel faces, each with every -1/0/+1 ulp combination per axis; and
+    whether an FMA-contracted transform would put any in another voxel."""
+    T = T.astype(np.float64)
+    R, t = T[:3, :3], T[:3, 3]
+    faces = np.round((xyz[:n_base] @ R.T + t) / leaf) * leaf
+    base = ((faces - t) @ R).astype(np.float32)
+    steps = np.array(np.meshgrid(*[[-1, 0, 1]] * 3, indexing="ij")
+                     ).reshape(3, -1).T
+    pts = np.repeat(base, len(steps), 0)
+    for a in range(3):
+        s = np.tile(steps[:, a], n_base)
+        pts[s < 0, a] = np.nextafter(pts[s < 0, a], np.float32(-np.inf))
+        pts[s > 0, a] = np.nextafter(pts[s > 0, a], np.float32(np.inf))
+    T32, inv = T.astype(np.float32), np.float32(1.0 / leaf)
+    x, y, z = pts.T
+    crossed = False
+    for r in range(3):
+        rounded = ((T32[r, 0] * x + T32[r, 1] * y) + T32[r, 2] * z) + T32[r, 3]
+        inner = (np.float64(T32[r, 0]) * x + T32[r, 1] * y).astype(np.float32)
+        fused = ((np.float64(T32[r, 2]) * z + inner).astype(np.float32)
+                 + T32[r, 3])
+        crossed |= bool((np.floor(rounded * inv)
+                         != np.floor(fused * inv)).any())
+    return pts, crossed
+
+
+@pytest.mark.parametrize("leaf", [0.1, 1.0])
+@pytest.mark.parametrize("search", ["DIRECT1", "DIRECT7", "DIRECT27"])
+def test_neighbor_hash_on_card_matches_plain(cuda, clouds, search, leaf):
+    """K1's hash (``neighbor_hash_kernel``, K1's device functions) against
+    the plain hash on the card: the cloud with its 1e9 padding, and points
+    within an ulp of voxel faces, where an FMA would pick another voxel."""
+    cfg = ndt.NDTConfig(resolution=leaf, grid_capacity=1 << 16,
+                        map_capacity=8192)
+    m = ndt.build_ndt_map(pointcloud.PointCloud(*(t.to(cuda)
+                                                  for t in clouds[0])), cfg)
+    ev = ndt._Evaluator(m, clouds[1].xyzi[:, :3].to(cuda),
+                        clouds[1].mask.to(cuda), leaf, ndt._OFFSETS[search],
+                        0.0, 0.0)
+    p = np.array([0.31, -0.17, 0.05, 0.02, -0.01, 0.3], np.float32)
+    params = ev.params(p)
+    T = params[2:14].cpu().numpy().reshape(3, 4)
+    valid = clouds[1].mask.numpy()
+    faces, crossed = _face_sources(T, clouds[1].xyzi[:, :3].numpy()[valid],
+                                   leaf)
+    assert crossed
+    xyz = torch.cat([ev.xyz, torch.from_numpy(faces.T).to(cuda)], 1)
+    mask = torch.cat([ev.mask, torch.ones(len(faces), dtype=torch.bool,
+                                          device=cuda)])
+    args = (params, xyz.contiguous(), mask, m.min_b, m.div,
+            m.hash_table.shape[0], ev.inv_leaf, ev.offsets)
+    h, nvid, okm = ndt_kernels.ndt_neighbor_hash(*args)
+    ph, pnvid, pokm = ndt_kernels.ndt_neighbor_hash_plain(*args)
+    assert torch.equal(okm, pokm)
+    assert torch.equal(h[okm], ph[okm]) and torch.equal(nvid[okm], pnvid[okm])
+    assert 0 < int(okm.sum()) < okm.numel()
 
 
 @pytest.mark.parametrize("frozen", [False, True])

@@ -5,7 +5,10 @@ toyslam_tpu_torch.diag.<name>``), and the timer they share.
 (kernel D1); ``profile_gather_modes`` measures row-gather cost in ns/row
 (kernel D2). Both run on the card unless ``--device cpu`` asks for the
 CPU, and raise without a card. ``k4_ablation`` times K4 with its pass-2
-skipping mechanisms taken out; it needs the card.
+skipping mechanisms taken out; ``ndt_eval_ops`` counts the device
+operations of one NDT evaluation; ``ndt_odometry_edge`` asks whether an
+odometry align that two routes end apart sits on an edge of the data;
+these need the card.
 """
 
 from __future__ import annotations

@@ -1,18 +1,20 @@
 """NDT derivative kernels K1-K3 and their plain PyTorch versions (port of
-``toyslam_tpu/ops/ndt_pallas.py``).
+``toyslam_tpu/ops/ndt_pallas.py``), with the DIRECT neighbour hash.
 
 Each wrapper takes CPU tensors to its ``*_plain`` version and launches its
 hand-written CUDA kernel (``csrc/ndt_kernels.cu``, sm_90a) for CUDA
 tensors, or raises; there is no fallback. The kernels are float32 only;
 the plain versions are dtype-generic and compute exactly what the JAX jnp
-path computes (``toyslam_tpu/registration/ndt.py:782-795, 885-998``).
+path computes (``toyslam_tpu/registration/ndt.py:660-704, 782-795,
+885-998``).
 
 The CUDA source is built by ``ops/_cuda.build`` at first use.
 
 Layouts (offset-major, as in the JAX package):
   params [83]: d1, d2, T[:3, :] row-major, j_tab [8, 3], h_tab [15, 3];
-  xyz [3, N]; table [grid_capacity, 16] hash-table rows; h, nvid [K*N]
-  int32 and okm [K*N] bool from ``registration/ndt.py``'s neighbour hash;
+  xyz [3, N]; mask [N] bool; table [grid_capacity, 16] hash-table rows;
+  min_b, div [3] int32, the map's grid; offsets [K, 3] int32 (DIRECT1/7/27);
+  h, nvid [K*N] int32 and okm [K*N] bool from the neighbour hash;
   stats10 [10, K*N]: mean(3), icov sym(6), gate.
 """
 
@@ -27,7 +29,14 @@ from toyslam_tpu_torch.ops import _cuda
 
 N_TERMS = 28  # 1 score + 6 gradient + 21 Hessian upper triangle
 N_PARAMS = 83
-THREADS = 256  # kThreads in csrc/ndt_kernels.cu
+THREADS = 128  # kThreads in csrc/ndt_kernels.cu
+MAX_OFFSETS = 27  # kMaxK in csrc/ndt_kernels.cu (DIRECT27)
+# K1 and K3 run a grid-stride loop over at most one wave of blocks (132
+# SMs, 4 blocks of 128 threads each), so the last block adds few block rows.
+MAX_BLOCKS = 4 * 132
+# Lanes that test one point's gates in K1 and K3 (kLanes in
+# csrc/ndt_kernels.cu): a warp takes 16 points at a time.
+LANES = 2
 
 # Kernel launches since the last reset; a wrapper adds one where it
 # launches its kernel and nowhere else.
@@ -36,6 +45,9 @@ LAUNCHES = {"ndt_terms_gathered": 0, "ndt_gather_repack": 0,
 
 SOURCE = _cuda.CSRC / "ndt_kernels.cu"
 _lib = None
+# The grid sum's last-block counter of each (device, stream): two streams
+# never share one, and each launch leaves its counter at 0.
+_counters = {}
 
 
 def reset_launch_counts():
@@ -46,6 +58,35 @@ def reset_launch_counts():
 # --------------------------------------------------------------------------
 # Plain versions (any device, any float dtype)
 # --------------------------------------------------------------------------
+
+
+def ndt_neighbor_hash_plain(params, xyz, mask, min_b, div, cap, inv_leaf,
+                            offsets):
+    """Hash slot ``h``, expected voxel id ``nvid`` and in-bounds & source-mask
+    flag ``okm`` of every (DIRECT offset, point) pair, [K*N] offset-major,
+    at the pose in ``params`` (``toyslam_tpu/registration/ndt.py:660-704``).
+
+    Each operation rounds on its own (eager torch) in the order of the JAX
+    source, and K1 repeats that bit for bit (XLA on the CPU contracts two
+    FMAs and can pick the next voxel for a point within an ulp of a face).
+    Where ``okm`` is false, ``h`` and ``nvid`` may differ between devices
+    (a padded point at 1e9 overflows int32), and nothing reads them.
+    """
+    K, N = offsets.shape[0], xyz.shape[1]
+    T = params[2:14]
+    sx, sy, sz = xyz
+    inv = torch.tensor(inv_leaf, dtype=xyz.dtype)
+    nijk = []
+    for a in range(3):
+        t = T[4 * a] * sx + T[4 * a + 1] * sy + T[4 * a + 2] * sz + T[4 * a + 3]
+        cell = torch.floor(t * inv).to(torch.int32) - min_b[a]
+        nijk.append((cell + offsets[:, a, None]).reshape(K * N))
+    in_b = ((nijk[0] >= 0) & (nijk[0] < div[0]) & (nijk[1] >= 0)
+            & (nijk[1] < div[1]) & (nijk[2] >= 0) & (nijk[2] < div[2]))
+    nvid = nijk[0] + nijk[1] * div[0] + nijk[2] * (div[0] * div[1])
+    ok = in_b & (nvid >= 0)
+    h = torch.where(ok, nvid & (cap - 1), 0)
+    return h, nvid, (ok.view(K, N) & mask).reshape(K * N)
 
 
 def ndt_gather_repack_plain(table, h, nvid, okm):
@@ -60,8 +101,8 @@ def ndt_gather_repack_plain(table, h, nvid, okm):
     return torch.cat([rows[:, :9].T, gate[None]], 0)
 
 
-def ndt_terms_packed_plain(params, xyz, stats10):
-    """The 28 NDT sums from compact stats (``ndt.py:885-998``)."""
+def ndt_pair_terms_plain(params, xyz, stats10):
+    """The 28 NDT terms of every pair, [28, K*N] (``ndt.py:885-998``)."""
     N = xyz.shape[1]
     K = stats10.shape[1] // N
     dtype = xyz.dtype
@@ -141,14 +182,22 @@ def ndt_terms_packed_plain(params, xyz, stats10):
                     col_dot(a_, [CJ[0][b_], CJ[1][b_], CJ[2][b_]])
                     + Hv[(a_, b_)])
             terms.append(contrib)
-    return torch.stack(terms).sum(1)
+    return torch.stack(terms)
 
 
-def ndt_terms_gathered_plain(params, xyz, table, h, nvid, okm):
-    """The 28 NDT sums straight from the hash table (gather + gate +
+def ndt_terms_packed_plain(params, xyz, stats10):
+    """The 28 NDT sums from compact stats."""
+    return ndt_pair_terms_plain(params, xyz, stats10).sum(1)
+
+
+def ndt_terms_gathered_plain(params, xyz, mask, table, min_b, div, inv_leaf,
+                             offsets):
+    """The 28 NDT sums straight from the hash table (hash + gather + gate +
     terms)."""
-    return ndt_terms_packed_plain(
-        params, xyz, ndt_gather_repack_plain(table, h, nvid, okm))
+    hashed = ndt_neighbor_hash_plain(params, xyz, mask, min_b, div,
+                                     table.shape[0], inv_leaf, offsets)
+    return ndt_terms_packed_plain(params, xyz,
+                                  ndt_gather_repack_plain(table, *hashed))
 
 
 # --------------------------------------------------------------------------
@@ -165,11 +214,14 @@ def build() -> Path:
 def _library():
     global _lib
     if _lib is None:
-        p, i64 = ctypes.c_void_p, ctypes.c_longlong
+        p, i64, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
         _lib = _cuda.load(SOURCE, {
-            "ndt_terms_gathered": [p, p, p, p, p, p, p, i64, i64, p],
+            "ndt_terms_gathered": [p, p, p, p, p, p, p, p, p, p, i64, i64,
+                                   f32, i64, i64, p],
+            "ndt_neighbor_hash": [p, p, p, p, p, p, p, p, p, i64, i64, f32,
+                                  i64, p],
             "ndt_gather_repack": [p, p, p, p, p, i64, p],
-            "ndt_terms_packed": [p, p, p, p, i64, i64, p],
+            "ndt_terms_packed": [p, p, p, p, p, p, i64, i64, i64, p],
         })
     return _lib
 
@@ -178,11 +230,15 @@ def _on_cpu(*tensors) -> bool:
     return _cuda.on_cpu("NDT", *tensors)
 
 
-def _check_pairs(table, h, nvid, okm):
-    kn = h.shape[0]
+def _check_table(table):
     _cuda.check("table", table, torch.float32, (table.shape[0], 16))
     if table.data_ptr() % 16:
         raise ValueError("table: rows must be 16-byte aligned")
+
+
+def _check_pairs(table, h, nvid, okm):
+    kn = h.shape[0]
+    _check_table(table)
     _cuda.check("h", h, torch.int32, (kn,))
     _cuda.check("nvid", nvid, torch.int32, (kn,))
     _cuda.check("okm", okm, torch.bool, (kn,))
@@ -191,13 +247,66 @@ def _check_pairs(table, h, nvid, okm):
     return kn
 
 
-def _check_points(params, xyz, kn):
+def _check_points(params, xyz):
     n = xyz.shape[1]
     _cuda.check("params", params, torch.float32, (N_PARAMS,))
     _cuda.check("xyz", xyz, torch.float32, (3, n))
-    if n == 0 or kn % n:
-        raise ValueError(f"{kn} pairs are not K x {n} points")
+    if n == 0 or n * 8 >= 2**31:
+        raise ValueError(f"{n} points: the kernels take 1 to 2**28 - 1")
     return n
+
+
+def _check_hash(mask, min_b, div, cap, offsets, n):
+    """The hash's operands; returns K."""
+    K = offsets.shape[0]
+    _cuda.check("mask", mask, torch.bool, (n,))
+    _cuda.check("min_b", min_b, torch.int32, (3,))
+    _cuda.check("div", div, torch.int32, (3,))
+    _cuda.check("offsets", offsets, torch.int32, (K, 3))
+    if not 1 <= K <= MAX_OFFSETS:
+        raise ValueError(f"{K} offsets: the kernels take 1 to {MAX_OFFSETS}")
+    if cap < 1 or cap & (cap - 1) or cap > 2**31:
+        raise ValueError(f"table capacity {cap} is not a power of two")
+    if K * n >= 2**31:
+        raise ValueError(f"{K * n} pairs exceed the kernels' int32 indexing")
+    return K
+
+
+def _blocks(n):
+    return min(-(-n * LANES // THREADS), MAX_BLOCKS)
+
+
+def _grid_sum_buffers(device, blocks):
+    """The sums, the blocks' partial rows and the last-block counter of one
+    launch of K1 or K3 on the current stream."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    counter = _counters.get(key)
+    if counter is None:  # zeroed once; every launch leaves it at 0
+        counter = _counters[key] = torch.zeros(1, dtype=torch.int32,
+                                               device=device)
+    out = torch.empty(N_TERMS, dtype=torch.float32, device=device)
+    partials = torch.empty((blocks, N_TERMS), dtype=torch.float32,
+                           device=device)
+    return out, partials, counter
+
+
+def ndt_neighbor_hash(params, xyz, mask, min_b, div, cap, inv_leaf, offsets):
+    """K1's neighbour hash alone, ``(h, nvid, okm)`` [K*N] offset-major, for
+    checks against ``ndt_neighbor_hash_plain``. On the card it launches
+    ``neighbor_hash_kernel``, which shares K1's device functions; no path
+    calls it, so it has no launch count."""
+    if _on_cpu(params, xyz, mask, min_b, div, offsets):
+        return ndt_neighbor_hash_plain(params, xyz, mask, min_b, div, cap,
+                                       inv_leaf, offsets)
+    n = _check_points(params, xyz)
+    K = _check_hash(mask, min_b, div, cap, offsets, n)
+    dev = xyz.device
+    h = torch.empty(K * n, dtype=torch.int32, device=dev)
+    nvid = torch.empty_like(h)
+    okm = torch.empty(K * n, dtype=torch.bool, device=dev)
+    _cuda.launch(_library().ndt_neighbor_hash, params, xyz, mask, min_b, div,
+                 offsets, h, nvid, okm, n, K, inv_leaf, cap - 1)
+    return h, nvid, okm
 
 
 def ndt_gather_repack(table, h, nvid, okm):
@@ -214,31 +323,39 @@ def ndt_gather_repack(table, h, nvid, okm):
 
 
 def ndt_terms_packed(params, xyz, stats10):
-    """K3: the 28 NDT sums from ``stats10 [10, K*N]``."""
+    """K3: the 28 NDT sums from ``stats10 [10, K*N]``, in one launch."""
     if _on_cpu(params, xyz, stats10):
         return ndt_terms_packed_plain(params, xyz, stats10)
+    n = _check_points(params, xyz)
     kn = stats10.shape[1]
     _cuda.check("stats10", stats10, torch.float32, (10, kn))
-    n = _check_points(params, xyz, kn)
-    blocks = -(-kn // THREADS)
-    partials = torch.empty((blocks, N_TERMS), dtype=torch.float32,
-                           device=xyz.device)
+    if kn % n or kn >= 2**31 or kn // n > MAX_OFFSETS:
+        raise ValueError(f"{kn} pairs are not K <= {MAX_OFFSETS} x {n} "
+                         f"points under 2**31")
+    blocks = _blocks(n)
+    out, partials, counter = _grid_sum_buffers(xyz.device, blocks)
     _cuda.launch(_library().ndt_terms_packed, params, xyz, stats10, partials,
-                 n, kn)
+                 out, counter, n, kn // n, blocks)
     LAUNCHES["ndt_terms_packed"] += 1
-    return partials.sum(0)  # fixed-order reduction over blocks
+    return out
 
 
-def ndt_terms_gathered(params, xyz, table, h, nvid, okm):
-    """K1: the 28 NDT sums straight from the hash table."""
-    if _on_cpu(params, xyz, table, h, nvid, okm):
-        return ndt_terms_gathered_plain(params, xyz, table, h, nvid, okm)
-    kn = _check_pairs(table, h, nvid, okm)
-    n = _check_points(params, xyz, kn)
-    blocks = -(-kn // THREADS)
-    partials = torch.empty((blocks, N_TERMS), dtype=torch.float32,
-                           device=xyz.device)
-    _cuda.launch(_library().ndt_terms_gathered, params, xyz, table, h, nvid,
-                 okm, partials, n, kn)
+def ndt_terms_gathered(params, xyz, mask, table, min_b, div, inv_leaf,
+                       offsets):
+    """K1: the 28 NDT sums straight from the hash table, the neighbour hash
+    included (``inv_leaf``: 1 / the map's resolution, taken as float32), in
+    one launch."""
+    if _on_cpu(params, xyz, mask, table, min_b, div, offsets):
+        return ndt_terms_gathered_plain(params, xyz, mask, table, min_b, div,
+                                        inv_leaf, offsets)
+    n = _check_points(params, xyz)
+    _check_table(table)
+    cap = table.shape[0]
+    K = _check_hash(mask, min_b, div, cap, offsets, n)
+    blocks = _blocks(n)
+    out, partials, counter = _grid_sum_buffers(xyz.device, blocks)
+    _cuda.launch(_library().ndt_terms_gathered, params, xyz, mask, table,
+                 min_b, div, offsets, partials, out, counter, n, K, inv_leaf,
+                 cap - 1, blocks)
     LAUNCHES["ndt_terms_gathered"] += 1
-    return partials.sum(0)  # fixed-order reduction over blocks
+    return out

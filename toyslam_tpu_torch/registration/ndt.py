@@ -9,9 +9,11 @@ Re-implements ``pclomp::NormalDistributionsTransform`` (reference
   inflation, the adjugate inverse, and a ``[grid_capacity, 16]`` hash table
   addressed by ``vid & (grid_capacity - 1)`` whose rows carry the voxel-id
   halves for aliasing verification.
-- ``compute_derivatives``: DIRECT7/1/27 neighbour hashing in plain torch,
-  then the stats gather and the 28 score/gradient/Hessian sums in the
-  kernels of ``ops/ndt_kernels.py`` (CUDA on the card, plain torch on CPU).
+- ``compute_derivatives``: the DIRECT7/1/27 neighbour hash, the stats
+  gather and the 28 score/gradient/Hessian sums in the kernels of
+  ``ops/ndt_kernels.py`` (CUDA on the card, plain torch on CPU): one K1
+  launch an exact evaluation; the frozen line search hashes in plain torch
+  for K2 and sums with K3.
 - ``ndt_align``: Newton steps with the More-Thuente line search.
 
 The host loop is a design choice, not a fallback. JAX runs the Newton and
@@ -346,13 +348,9 @@ class _Evaluator:
         self.np_dtype = torch.empty((), dtype=self.dtype).numpy().dtype
         self.xyz = src_xyz[:, :3].T.contiguous()  # [3, N]
         self.mask = src_mask
-        N = self.xyz.shape[1]
         self.K = len(offsets)
-        off = torch.tensor(offsets, dtype=torch.int32, device=dev)
-        self.off = off.repeat_interleave(N, 0).T  # [3, K*N] offset-major
-        self.okm_src = src_mask.repeat(self.K)
-        self.inv_leaf = torch.tensor(1.0 / resolution, dtype=self.dtype,
-                                     device=dev)
+        self.offsets = torch.tensor(offsets, dtype=torch.int32, device=dev)
+        self.inv_leaf = 1.0 / resolution
         self.d12 = np.array([d1, d2], self.np_dtype)
         self.n_src = None
         self.syncs = 0
@@ -367,31 +365,21 @@ class _Evaluator:
     def neighbor_hash(self, params):
         """Hash slot, expected voxel id and in-bounds & source-mask flag of
         every (DIRECT offset, point) pair, [K*N] offset-major."""
-        T = params[2:14]
-        sx, sy, sz = self.xyz
-        t = [T[4 * r] * sx + T[4 * r + 1] * sy + T[4 * r + 2] * sz
-             + T[4 * r + 3] for r in range(3)]
         m = self.map
-        nijk = [(torch.floor(t[a] * self.inv_leaf).to(torch.int32)
-                 - m.min_b[a]).repeat(self.K) + self.off[a] for a in range(3)]
-        in_b = ((nijk[0] >= 0) & (nijk[0] < m.div[0]) & (nijk[1] >= 0)
-                & (nijk[1] < m.div[1]) & (nijk[2] >= 0) & (nijk[2] < m.div[2]))
-        nvid = nijk[0] + nijk[1] * m.div[0] + nijk[2] * (m.div[0] * m.div[1])
-        ok = in_b & (nvid >= 0)
-        cap = m.hash_table.shape[0]
-        h = torch.where(ok, nvid & (cap - 1), 0)
-        return h, nvid, ok & self.okm_src
+        return ndt_kernels.ndt_neighbor_hash_plain(
+            params, self.xyz, self.mask, m.min_b, m.div,
+            m.hash_table.shape[0], self.inv_leaf, self.offsets)
 
     def gather(self, params):
-        h, nvid, okm = self.neighbor_hash(params)
-        return ndt_kernels.ndt_gather_repack(self.map.hash_table, h, nvid,
-                                             okm)
+        return ndt_kernels.ndt_gather_repack(self.map.hash_table,
+                                             *self.neighbor_hash(params))
 
     def sums(self, params, stats=None):
-        if stats is None:
-            h, nvid, okm = self.neighbor_hash(params)
+        if stats is None:  # K1 hashes, gathers and sums in one launch
+            m = self.map
             return ndt_kernels.ndt_terms_gathered(
-                params, self.xyz, self.map.hash_table, h, nvid, okm)
+                params, self.xyz, self.mask, m.hash_table, m.min_b, m.div,
+                self.inv_leaf, self.offsets)
         return ndt_kernels.ndt_terms_packed(params, self.xyz, stats)
 
     def derivs(self, p, stats=None):
