@@ -26,8 +26,9 @@ were launched, that the results match the same runs through the plain
 versions (K2, K4 and D2 bit for bit; K1's in-kernel neighbour hash bit for
 bit against the plain hash; K1 and K3 at every evaluation of the plain
 odometry) and are bit-identical on a rerun, that one NDT evaluation is
-three device operations, counts the host syncs and K4's rescored columns,
-and prints the timings with the card's name and power limit. The line
+three device operations and one K6 call one, counts the host syncs and
+K4's rescored columns, and prints the timings with the card's name and
+power limit. The line
 before the card's line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it. There is no CPU path: without a CUDA
@@ -342,7 +343,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from toyslam_tpu_torch.core import pointcloud
-    from toyslam_tpu_torch.diag import diag_bf16_concat, ndt_eval_ops
+    from toyslam_tpu_torch.diag import diag_bf16_concat, gicp_call_ops
+    from toyslam_tpu_torch.diag import ndt_eval_ops
     from toyslam_tpu_torch.diag import ndt_odometry_edge
     from toyslam_tpu_torch.diag import profile_gather_modes
     from toyslam_tpu_torch.ops import _cuda, gather_kernels, gicp_kernels
@@ -735,15 +737,19 @@ def main() -> int:
 
     q, m6, w = gicp._correspondences(prob, eye3, zero3)
     gparams = torch.cat([eye3.reshape(-1), zero3])
+    k6_args = (gparams, prob.xyz, q, m6, w)
+    k6_out = gicp_kernels.gicp_terms(*k6_args).clone()
+    k6_same = torch.equal(k6_out.view(torch.int32),
+                          gicp_kernels.gicp_terms(*k6_args).view(torch.int32))
     rel_err, err["gicp_terms"] = terms_err(
-        gicp_kernels.gicp_terms(gparams, prob.xyz, q, m6, w),
-        gicp_kernels.gicp_terms_plain(gparams, prob.xyz, q, m6, w),
-        GN_GROUPS)
+        k6_out, gicp_kernels.gicp_terms_plain(*k6_args), GN_GROUPS)
     print(f"  gicp_terms: max rel err {rel_err:.3g} (bound {TERMS_RTOL}), "
           f"max abs err {err['gicp_terms']:.3g}, {int(w.sum())} "
-          f"correspondences within {gcfg.max_correspondence_distance} m")
+          f"correspondences within {gcfg.max_correspondence_distance} m; "
+          f"rerun bit-identical: {k6_same}")
     check(rel_err <= TERMS_RTOL, "K6 gicp_terms disagrees with its plain "
                                  "version")
+    check(k6_same, "K6 gicp_terms is not bit-identical on a rerun")
 
     # Registration path: counts reset, then one GICP and one ICP align.
     nn_kernels.reset_launch_counts()
@@ -849,9 +855,8 @@ def main() -> int:
         cuda_ms(lambda: nn_kernels.neg_dist_bf16_plain(
             moved, ssq, prob.tgt_t, prob.tsq)))
     ms["gicp_terms"] = (
-        cuda_ms(lambda: gicp_kernels.gicp_terms(gparams, prob.xyz, q, m6, w)),
-        cuda_ms(lambda: gicp_kernels.gicp_terms_plain(gparams, prob.xyz, q,
-                                                      m6, w)))
+        cuda_ms(lambda: gicp_kernels.gicp_terms(*k6_args)),
+        cuda_ms(lambda: gicp_kernels.gicp_terms_plain(*k6_args)))
     library["nearest_neighbor"] = cuda_ms(
         lambda: torch.cdist(moved, tgt_xyz).argmin(1))
     library["neg_dist_bf16"] = cuda_ms(
@@ -864,8 +869,8 @@ def main() -> int:
     bounds["neg_dist_bf16"] = bound(
         nbytes(moved, ssq, prob.tgt_t, prob.tsq) + 2 * n * m_cols,
         NN_FLOPS_PER_PAIR * n * m_cols)
-    bounds["gicp_terms"] = bound(nbytes(gparams, prob.xyz, q, m6, w)
-                                 + 27 * 4, GICP_FLOPS_PER_PAIR * n)
+    bounds["gicp_terms"] = bound(nbytes(*k6_args) + 27 * 4,
+                                 GICP_FLOPS_PER_PAIR * n)
     launch_dev_ms["nearest_neighbor"] = device_ms_per_launch(
         lambda: nn_kernels.nearest_neighbor(moved, prob.tgt_t, prob.tsq),
         CUDA_NAMES["nearest_neighbor"])
@@ -873,8 +878,20 @@ def main() -> int:
         lambda: nn_kernels.neg_dist_bf16(moved, ssq, prob.tgt_t, prob.tsq),
         CUDA_NAMES["neg_dist_bf16"])
     launch_dev_ms["gicp_terms"] = device_ms_per_launch(
-        lambda: gicp_kernels.gicp_terms(gparams, prob.xyz, q, m6, w),
-        CUDA_NAMES["gicp_terms"])
+        lambda: gicp_kernels.gicp_terms(*k6_args), CUDA_NAMES["gicp_terms"])
+    # K6 as a call: its device operations, their device time queued behind
+    # a spin, the host's cost of issuing it, and an empty launch of its grid.
+    costs = gicp_call_ops.call_costs(
+        lambda: gicp_kernels.gicp_terms(*k6_args), dev)
+    k6_ops = costs["call"]["ops"] / costs["calls"]
+    check(k6_ops == 1, f"a K6 call is {k6_ops:g} device operations: "
+                       f"{costs['call']['by_name']}")
+    k6_extra = {
+        "ops_per_call": k6_ops,
+        "device_ms_per_call": costs["device_ms_per_call"],
+        "host_ms_per_call": costs["host_ms_per_call"],
+        "empty_launch_ms": device_ms_per_launch(
+            lambda: gicp_kernels.empty_launch(n, dev), "gicp_empty_kernel")}
     print(f"phase 9 registration timings ({card}), CUDA events, mean of "
           f"{REPS} after warm-up, at N = M = {n}; TF32 off for the plain "
           f"and library calls:")
@@ -888,6 +905,13 @@ def main() -> int:
           f"for comparison, the plain version's f32 count ("
           f"{NN_FLOPS_PER_PAIR} a pair at {PEAK_F32_FLOPS / 1e12:.0f} "
           f"TFLOP/s) {k4_f32_bound:.4f} ms ({k4_f32_bound / k4_dev:.1%})")
+    print(f"  gicp_terms as a call: {k6_ops:g} device operation, "
+          f"{k6_extra['device_ms_per_call']:.4f} ms of device time a call "
+          f"({gicp_call_ops.REPS} calls queued behind a spin), "
+          f"{k6_extra['host_ms_per_call']:.4f} ms of host time a call "
+          f"({gicp_call_ops.REPS} calls issued); an empty kernel on its grid "
+          f"({gicp_kernels.blocks(n)} x {gicp_kernels.THREADS}) "
+          f"{k6_extra['empty_launch_ms']:.4f} ms a launch")
     for name, lib_name in (("nearest_neighbor", "cdist + argmin"),
                            ("neg_dist_bf16", "addmm + to(bfloat16)"),
                            ("gicp_terms", None)):
@@ -1049,9 +1073,12 @@ def main() -> int:
     for key, value in d2.items():
         if key.endswith("_ns_per_row"):
             print(f"    {key}: {value:.4f}")
+    d2_cold_ms = d2["kernel_cold_ns_per_row"] * rows / 1e6
     print(f"  kernel {ms['lane_row_sum'][0]:.4f} ms (device "
-          f"{launch_dev_ms['lane_row_sum']:.4f} ms a launch), plain "
-          f"{ms['lane_row_sum'][1]:.4f} ms, library (batched indexing) "
+          f"{launch_dev_ms['lane_row_sum']:.4f} ms a launch; "
+          f"{d2_cold_ms:.4f} ms with the L2 cache flushed before each "
+          f"call), "
+          f"plain {ms['lane_row_sum'][1]:.4f} ms, library (batched indexing) "
           f"{library['lane_row_sum']:.4f} ms, bound "
           f"{bounds['lane_row_sum'][0]:.4f} ms")
     del got, want, gtab, gids
@@ -1067,6 +1094,8 @@ def main() -> int:
     kernels[list(KERNELS).index("split_dot")]["modes"] = modes
     kernels[list(KERNELS).index("nearest_neighbor")]["rescored_per_row"] = (
         k4_counts)
+    kernels[list(KERNELS).index("gicp_terms")].update(k6_extra)
+    kernels[list(KERNELS).index("lane_row_sum")]["cold_ms"] = d2_cold_ms
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

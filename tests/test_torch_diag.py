@@ -39,6 +39,7 @@ from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 from toyslam_tpu_torch.diag import diag_bf16_concat  # noqa: E402
 from toyslam_tpu_torch.diag import profile_gather_modes  # noqa: E402
 from toyslam_tpu_torch.diag import k4_ablation  # noqa: E402
+from toyslam_tpu_torch.diag import kernel_variants  # noqa: E402
 from toyslam_tpu_torch.diag import ndt_odometry_edge  # noqa: E402
 from toyslam_tpu_torch.ops import gather_kernels, ranking_kernels  # noqa: E402
 
@@ -190,7 +191,8 @@ def test_profile_gather_modes_runs_on_cpu():
     keys = ({f"single_tab{r}_ns_per_row" for r in rows}
             | {f"kernel_tab{r}_ns_per_row" for r in rows}
             | {"batched_ns_per_row", "batched_carry_ns_per_row",
-               "flat_ns_per_row", "kernel_ns_per_row", "flat_matches",
+               "flat_ns_per_row", "kernel_ns_per_row",
+               "kernel_cold_ns_per_row", "flat_matches",
                "kernel_matches", "device"})
     assert set(out) == keys
     assert out["flat_matches"] and out["kernel_matches"]
@@ -219,6 +221,35 @@ def test_k4_ablation_edits_apply(name):
     assert (changed == base) == (name == "as_built")
     for _, new in k4_ablation.VARIANTS[name]:
         assert new in text
+
+
+KERNEL_COPIES = kernel_variants._copies()
+
+
+@pytest.mark.parametrize("key", list(KERNEL_COPIES), ids="-".join)
+def test_kernel_variants_edits_apply(key):
+    """Each copy that ``kernel_variants`` builds differs from its source
+    exactly by its edits: K6 at its block shape (and the shared header by
+    absolute path), the candidates at their block shapes, the ablations
+    without the part they take out."""
+    kind, name = key
+    text, entry = KERNEL_COPIES[key]
+    assert f'extern "C" int {entry}(' in text
+    if kind == "k6":
+        threads, per = name.split("x")
+        assert f"constexpr int kThreads = {threads};" in text
+        assert f"constexpr int kPer = {per};" in text
+        assert str(kernel_variants._cuda.CSRC / "block_sum.cuh") in text
+    elif name.startswith(("cluster_read_", "owner_filter_")):
+        names = (("kCluster", "kClusterThreads", "kIds")
+                 if name.startswith("cluster") else
+                 ("kGroup", "kGroupThreads", "kGroupIds"))
+        for const, value in zip(names, name.rsplit("_", 1)[1].split("x")):
+            assert f"constexpr int {const} = {value};" in text
+    elif kind == "ablation":
+        source, _, edits = kernel_variants.ABLATIONS[name]
+        assert text != source.read_text()
+        assert all(new in text and old not in text for old, new in edits)
 
 
 def test_k4_ablation_needs_a_card():

@@ -18,14 +18,16 @@ K4 bit-identical in both outputs on every row, padded rows included (its
 tensor-core screen only picks the columns that it rescores in f32 as the
 plain version rounds); K5 within 1 bf16 ulp on 99.9 % of the valid
 entries (it rounds each step as its plain version does); K6 sums within rtol
-1e-4 of the largest sum of their group. A GICP align on the card within
+1e-4 of the largest sum of their group, bit-identical on a rerun, one device
+operation a call, at N from 1 to past its 256-correspondence blocks and
+several waves of them. A GICP align on the card within
 1e-3 m / 1e-3 rad of the same align on the CPU (a bf16 tie can swap a
 covariance neighbour; the CPU and the card break top-k ties differently).
 D1: ``highest`` bit-identical; the split modes within 2^-16 of the largest
 |s.t| (the same exact bf16 products, summed by the tensor core in place of
 the plain version's f32 adds; a bf16-level sum would miss by ~2^-9). D2
-bit-identical (the same tree of f32 adds). Both at ragged shapes: no shape
-gate.
+bit-identical (the same tree of f32 adds), one device operation a call.
+All at ragged shapes: no shape gate.
 """
 
 import numpy as np
@@ -34,6 +36,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from toyslam_tpu_torch.core import pointcloud  # noqa: E402
+from toyslam_tpu_torch.diag import gicp_call_ops  # noqa: E402
 from toyslam_tpu_torch.ops import gather_kernels, gicp_kernels  # noqa: E402
 from toyslam_tpu_torch.ops import nn_kernels, ranking_kernels  # noqa: E402
 from toyslam_tpu_torch.ops import ndt_kernels  # noqa: E402
@@ -487,3 +490,70 @@ def test_lane_row_sum_matches_plain_on_card(cuda):
     assert gather_kernels.LAUNCHES == {"lane_row_sum": 2}
     with pytest.raises(TypeError):
         gather_kernels.lane_row_sum(ids.long(), table)
+
+
+def _one_device_operation(fn, kernel, calls=20):
+    """fn() is one device operation, the kernel named ``kernel``: ``calls``
+    calls under torch.profiler are ``calls`` launches of it and nothing
+    else (``gicp_call_ops.profiled`` primes the session)."""
+    prof = gicp_call_ops.profiled(fn, calls)
+    assert prof["ops"] == calls, prof["by_name"]
+    assert all(kernel in k for k in prof["by_name"]), prof["by_name"]
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 32768, 100003])
+def test_gicp_terms_one_launch_on_card(cuda, n):
+    """K6 on generated correspondences (SPD Mahalanobis, 30 % rejected)
+    against its plain version, twice (bit-identical), one device operation
+    a call."""
+    rng = np.random.default_rng(n)
+    xyz = rng.uniform(-20, 20, (3, n))
+    q = xyz + rng.normal(0, 0.1, (3, n))
+    L = rng.normal(size=(n, 3, 3))
+    M = L @ L.transpose(0, 2, 1) + np.eye(3)
+    m6 = M[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]].T
+    w = (rng.uniform(size=n) > 0.3).astype(np.float64)
+    c, s_ = np.cos(0.1), np.sin(0.1)
+    params = np.array([c, -s_, 0, s_, c, 0, 0, 0, 1, 0.3, -0.2, 0.1])
+    args = [torch.tensor(a, dtype=torch.float32, device=cuda)
+            for a in (params, xyz, q, m6, w)]
+    gicp_kernels.reset_launch_counts()
+    got = gicp_kernels.gicp_terms(*args)
+    again = gicp_kernels.gicp_terms(*args)
+    assert gicp_kernels.LAUNCHES == {"gicp_terms": 2}
+    assert got.shape == (27,) and got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    want = gicp_kernels.gicp_terms_plain(*args).double().cpu()
+    got = got.double().cpu()
+    for sl in (slice(0, 6), slice(6, 12), slice(12, 21), slice(21, 27)):
+        scale = want[sl].abs().max().clamp(min=1e-30)
+        assert ((got[sl] - want[sl]).abs().max() / scale) <= 1e-4
+    _one_device_operation(lambda: gicp_kernels.gicp_terms(*args),
+                          "gicp_terms_kernel")
+
+
+@pytest.mark.parametrize("lanes,cap,ids_shape", [
+    (3, 1000, (1001,)),
+    (2, 8193, (37, 13)),
+    (1, 5, (300,)),
+    (1, 8192, (458753,)),
+    (2, 40000, (5, 999)),
+])
+def test_lane_row_sum_ragged_on_card(cuda, lanes, cap, ids_shape):
+    """D2 at ragged shapes, bit-identical to its plain version, every id
+    kind included: negative, past the end, and the int32 extremes; one
+    device operation a call."""
+    rng = np.random.default_rng(cap)
+    table = torch.from_numpy(rng.normal(size=(lanes, cap, 16)).astype(
+        np.float32)).to(cuda)
+    ids = rng.integers(-cap - 50, cap + 50, size=(lanes, *ids_shape))
+    ids.reshape(lanes, -1)[:, :4] = [-2**31, 2**31 - 1, -1, cap]
+    ids = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    gather_kernels.reset_launch_counts()
+    got = gather_kernels.lane_row_sum(ids, table)
+    assert gather_kernels.LAUNCHES == {"lane_row_sum": 1}
+    want = gather_kernels.lane_row_sum_plain(ids, table)
+    assert got.shape == ids.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    _one_device_operation(lambda: gather_kernels.lane_row_sum(ids, table),
+                          "lane_row_sum_kernel")

@@ -1,11 +1,7 @@
-// Deterministic sums shared by the port's reduction kernels.
+// Deterministic sums shared by the port's reduction kernels (K1, K3, K6).
 //
 // Blocks run in no order, so a kernel that sums over all its threads never
 // adds floats across blocks with atomics: reruns stay bit-identical.
-//
-// block_sum_store: each block reduces its terms by a fixed shared-memory
-// tree and writes one row of [num_blocks, kTerms] partials; the caller
-// finishes with a torch.sum over blocks (a second device operation).
 //
 // grid_sum: one launch. Each warp adds its lanes' 32 slots by halving
 // exchanges (31 shuffles), the block adds its warps in order, and the last
@@ -17,28 +13,6 @@
 #pragma once
 
 #include <cuda_runtime.h>
-
-// Sums t[] over the kThreads threads of the block (a power of two) and
-// writes row blockIdx.x of partials. Every thread of the block must call it.
-template <int kTerms, int kThreads>
-__device__ __forceinline__ void block_sum_store(const float (&t)[kTerms],
-                                                float* __restrict__ partials) {
-  static_assert((kThreads & (kThreads - 1)) == 0, "kThreads: a power of two");
-  __shared__ float red[kTerms][kThreads];
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int c = 0; c < kTerms; ++c) red[c][tid] = t[c];
-  __syncthreads();
-#pragma unroll
-  for (int stride = kThreads / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) {
-#pragma unroll
-      for (int c = 0; c < kTerms; ++c) red[c][tid] += red[c][tid + stride];
-    }
-    __syncthreads();
-  }
-  if (tid < kTerms) partials[blockIdx.x * kTerms + tid] = red[tid][0];
-}
 
 // Sums slot s of v[] over the 32 lanes of the warp and returns it in lane
 // s. At width w each lane keeps the w slots whose bit w matches its own and

@@ -11,17 +11,24 @@
 // What bounds it: the ids read and the sums written once (8 bytes an id),
 // and each lane's table read once: 62.9 MB at the fleet's shape (64 lanes,
 // cap 8192, 57344 ids a lane), 0.019 ms at 3.35 TB/s. The gathered rows
-// themselves are 64 bytes each and come from L2 (235 MB of L2 traffic at
-// that shape).
+// themselves are 64 bytes each, 235 MB at that shape, and they set the
+// time: they come from L2, which holds the fleet's 32 MiB of tables (with
+// the ids and sums alone the kernel takes a sixth of its time).
 //
-// Design: the TPU kernel holds a lane's whole [cap, 16] table in VMEM; at
-// cap 8192 that is 512 KiB, more than a block's 227 KB of shared memory,
-// so here the rows are read through L2, which holds the fleet's 32 MiB of
-// tables. One grid row of blocks per lane (blockIdx.y); a thread owns one
+// Design: one grid row of blocks per lane (blockIdx.y); a thread owns one
 // id, neighbouring threads neighbouring ids (coalesced id loads and sum
 // stores), and reads its row as four 16-byte float4 loads. The 16 floats
 // are summed in a fixed tree with __fadd_rn, the tree of the plain version
 // (ops/gather_kernels.py), so the two agree bit for bit.
+//
+// The TPU kernel holds a lane's whole [cap, 16] table in VMEM. At cap 8192
+// that is 512 KiB: more than a block's 227 KB of shared memory, but it fits
+// in a thread block cluster or a group of blocks. Held there, the rows came
+// no faster on the H100 (diag/gather_candidates.cu, timed by
+// diag/kernel_variants.py): read from the owning block through the
+// cluster, 7 of 8 of them remote, they took 3.8x as long; each block
+// serving only the ids whose rows it holds tied this kernel, as every block
+// then reads every id of its lane.
 //
 // Every entry point returns cudaGetLastError() so that the Python wrapper
 // can raise on a refused launch.

@@ -10,14 +10,27 @@
 // (6), A_tr = w B row-major (9), A_rr = w S B upper (6).
 //
 // What bounds it: reading 52 bytes per correspondence (1.7 MB at N =
-// 32768) against ~130 flops; at that size a launch costs more than either.
-// Design: one thread per correspondence, structure-of-arrays inputs so a
-// warp's loads are coalesced, the pose as 12 floats in shared memory, and
-// the deterministic block tree of block_sum.cuh into [blocks, 27]
-// partials that the wrapper sums with torch.sum. No float atomics: reruns
-// are bit-identical. Any N works: threads past N contribute zeros.
+// 32768) against ~130 flops; at that size a launch costs more than either,
+// so the design is about latency: enough warps in flight, a short sum, and
+// one device operation a call.
+// - kThreads threads a block, each taking kPer correspondences, i =
+//   (block * kPer + j) * kThreads + thread for j = 0 .. kPer - 1 in order
+//   (coalesced structure-of-arrays loads, all of a thread's loads issued
+//   before its arithmetic). At N = 32768 that is 128 blocks of 128 threads,
+//   about one block an SM; 64 x 4, 128 x 1, 256 x 1 and 256 x 2 were timed
+//   against it (diag/kernel_variants.py).
+// - Each term is rounded as the plain products round it and then added to
+//   the thread's running sums with __fadd_rn, so no FMA contracts a product
+//   into a sum.
+// - One launch: grid_sum (block_sum.cuh) adds the threads' sums by warp
+//   halving exchanges, the warps in order, and the blocks' rows in order in
+//   the last block to finish, which writes the 27 sums. No float atomics:
+//   reruns are bit-identical. Any N works: threads past N add nothing.
 //
-// The entry point returns cudaGetLastError() so that the Python wrapper can
+// gicp_empty launches an empty kernel on K6's grid, so that a check can set
+// K6's device time beside the cost of a launch of that shape.
+//
+// The entry points return cudaGetLastError() so that the Python wrapper can
 // raise on a refused launch.
 
 #include <cuda_runtime.h>
@@ -26,8 +39,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // THREADS in toyslam_tpu_torch/ops/gicp_kernels.py
+constexpr int kThreads = 128;  // THREADS in toyslam_tpu_torch/ops/gicp_kernels.py
+constexpr int kPer = 2;        // PER_THREAD there: correspondences a thread
 constexpr int kTerms = 27;     // 6 gradient + 6 A_tt + 9 A_tr + 6 A_rr
+constexpr int kSlots = 28;     // the terms padded to rows of whole float4s
 constexpr int kParams = 12;    // R row-major (9), t (3)
 
 __device__ __forceinline__ void pair_terms(const float* P, float x, float y,
@@ -99,37 +114,70 @@ __global__ void __launch_bounds__(kThreads)
 gicp_terms_kernel(const float* __restrict__ params,
                   const float* __restrict__ xyz, const float* __restrict__ q,
                   const float* __restrict__ m6, const float* __restrict__ w,
-                  float* __restrict__ partials, int n) {
+                  float* partials, float* out, unsigned int* counter, int n) {
   __shared__ float P[kParams];
   if (threadIdx.x < kParams) P[threadIdx.x] = params[threadIdx.x];
-  __syncthreads();
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  float t[kTerms];
-  if (i < n) {
-    const size_t nn = static_cast<size_t>(n);
-    float m[6];
+  const size_t nn = static_cast<size_t>(n);
+  // The thread's correspondences, loaded before any arithmetic (w = 0 and
+  // zeros past N: their terms are exact zeros and are not added).
+  float in[kPer][16];
 #pragma unroll
-    for (int c = 0; c < 6; ++c) m[c] = m6[c * nn + i];
-    pair_terms(P, xyz[i], xyz[nn + i], xyz[2 * nn + i], q[i], q[nn + i],
-               q[2 * nn + i], m, w[i], t);
-  } else {
+  for (int j = 0; j < kPer; ++j) {
+    const size_t i = (static_cast<size_t>(blockIdx.x) * kPer + j) * kThreads +
+                     threadIdx.x;
+    const bool ok = i < nn;
 #pragma unroll
-    for (int c = 0; c < kTerms; ++c) t[c] = 0.0f;
+    for (int c = 0; c < 3; ++c) {
+      in[j][c] = ok ? xyz[c * nn + i] : 0.0f;
+      in[j][3 + c] = ok ? q[c * nn + i] : 0.0f;
+    }
+#pragma unroll
+    for (int c = 0; c < 6; ++c) in[j][6 + c] = ok ? m6[c * nn + i] : 0.0f;
+    in[j][12] = ok ? w[i] : 0.0f;
   }
-  block_sum_store<kTerms, kThreads>(t, partials);
+  __syncthreads();  // P
+  float acc[32];
+#pragma unroll
+  for (int c = 0; c < 32; ++c) acc[c] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const size_t i = (static_cast<size_t>(blockIdx.x) * kPer + j) * kThreads +
+                     threadIdx.x;
+    if (i < nn) {
+      float t[kTerms];
+      pair_terms(P, in[j][0], in[j][1], in[j][2], in[j][3], in[j][4],
+                 in[j][5], in[j] + 6, in[j][12], t);
+#pragma unroll
+      for (int c = 0; c < kTerms; ++c) acc[c] = __fadd_rn(acc[c], t[c]);
+    }
+  }
+  grid_sum<kThreads, kSlots>(acc, partials, out, counter);
+}
+
+__global__ void gicp_empty_kernel() {}
+
+inline cudaStream_t as_stream(void* stream) {
+  return static_cast<cudaStream_t>(stream);
 }
 
 }  // namespace
 
 extern "C" int gicp_terms(const void* params, const void* xyz, const void* q,
                           const void* m6, const void* w, void* partials,
-                          long long n, void* stream) {
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  gicp_terms_kernel<<<blocks, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+                          void* out, void* counter, long long n,
+                          long long blocks, void* stream) {
+  gicp_terms_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                      as_stream(stream)>>>(
       static_cast<const float*>(params), static_cast<const float*>(xyz),
       static_cast<const float*>(q), static_cast<const float*>(m6),
       static_cast<const float*>(w), static_cast<float*>(partials),
+      static_cast<float*>(out), static_cast<unsigned int*>(counter),
       static_cast<int>(n));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gicp_empty(long long blocks, void* stream) {
+  gicp_empty_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                      as_stream(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

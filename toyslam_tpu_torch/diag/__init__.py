@@ -5,10 +5,11 @@ toyslam_tpu_torch.diag.<name>``), and the timer they share.
 (kernel D1); ``profile_gather_modes`` measures row-gather cost in ns/row
 (kernel D2). Both run on the card unless ``--device cpu`` asks for the
 CPU, and raise without a card. ``k4_ablation`` times K4 with its pass-2
-skipping mechanisms taken out; ``ndt_eval_ops`` counts the device
-operations of one NDT evaluation; ``ndt_odometry_edge`` asks whether an
-odometry align that two routes end apart sits on an edge of the data;
-these need the card.
+skipping mechanisms taken out; ``kernel_variants`` times K6 and D2 built
+with other block shapes; ``ndt_eval_ops`` and ``gicp_call_ops`` count the
+device operations of one NDT evaluation and of one K6 call;
+``ndt_odometry_edge`` asks whether an odometry align that two routes end
+apart sits on an edge of the data; these need the card.
 """
 
 from __future__ import annotations
@@ -61,5 +62,38 @@ def timed_ms(fn, dev: torch.device, reps: int = 20, warmup: int = 2) -> float:
         end.synchronize()
         if queued_in_time:
             return start.elapsed_time(end) / reps
+    raise RuntimeError("the timed calls outlast a 16x spin of the card: they "
+                       "wait on it, and events would time the host")
+
+
+L2_FLUSH_BYTES = 256 << 20  # five times the card's 50 MB L2
+
+
+def timed_cold_ms(fn, dev: torch.device, reps: int = 20,
+                  warmup: int = 2) -> float:
+    """Mean device milliseconds of one call of ``fn`` that finds the L2
+    cache cold: each call follows a read of a buffer five times the L2's
+    size (clean lines, so the call pays no write-backs) and is timed alone
+    between two CUDA events, all of it queued behind a spin of the card as
+    in ``timed_ms``. On the CPU, ``timed_ms``."""
+    if dev.type != "cuda":
+        return timed_ms(fn, dev, reps, warmup)
+    for _ in range(warmup):
+        fn()
+    flush = torch.ones(L2_FLUSH_BYTES // 4, device=dev)
+    for doubling in range(5):
+        torch.cuda.synchronize(dev)
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+        torch.cuda._sleep(SPIN_CYCLES << doubling)
+        for start, end in events:
+            flush.sum()
+            start.record()
+            fn()
+            end.record()
+        queued_in_time = not events[0][0].query()
+        events[-1][1].synchronize()
+        if queued_in_time:
+            return sum(s.elapsed_time(e) for s, e in events) / reps
     raise RuntimeError("the timed calls outlast a 16x spin of the card: they "
                        "wait on it, and events would time the host")

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import json
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -26,20 +27,27 @@ import torch
 def profile_evaluation(ev, p, stats=None, sessions=3):
     """One ``ev.derivs(p, stats)`` under torch.profiler after a warm-up:
     device operations, their device milliseconds, and the count by name. A
-    profiler session that reports no device events at all (it happens now
-    and then on the card) is run again, up to ``sessions`` in all; raises
-    if every one is empty."""
+    profiler session on the card can miss its first device events, so each
+    session starts with a few spins of the card (``torch.cuda._sleep``'s
+    ``spin_kernel``) and a pause of the host, which are left out. A session
+    that still reports no device events is run again, up to ``sessions`` in
+    all; raises if every one is empty."""
     from torch.profiler import ProfilerActivity, profile
 
     ev.derivs(p, stats)
     torch.cuda.synchronize()
     for _ in range(sessions):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.01)
             ev.derivs(p, stats)
             torch.cuda.synchronize()
         rows = [(e.key, e.count, e.self_device_time_total)
                 for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "spin_kernel" not in e.key]
         if rows:
             break
     else:

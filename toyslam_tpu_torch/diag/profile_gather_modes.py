@@ -20,9 +20,11 @@ sums each gathered row to one float, so the gather cannot be skipped:
 
 (a)-(c) are PyTorch indexing, the library yardstick for D2. Times are CUDA
 events over repeated calls on the same ids (the tables stay as warm as L2
-keeps them). Prints one JSON line of ``*_ns_per_row`` keys, ``flat_matches``
-(c agrees with b), ``kernel_matches`` (d equals its plain version bit for
-bit) and ``device``; on the CPU the times are host-clock times of the plain
+keeps them); ``kernel_cold_ns_per_row`` times (d) at the fleet's shape
+with the L2 cache flushed before each call. Prints one JSON line of
+``*_ns_per_row`` keys, ``flat_matches`` (c agrees with b),
+``kernel_matches`` (d equals its plain version bit for bit) and
+``device``; on the CPU the times are host-clock times of the plain
 versions.
 """
 
@@ -102,6 +104,8 @@ def run(lanes: int = LANES, cap: int = CAP, nk: int = NK,
                                               atol=1e-4))
     res["kernel_ns_per_row"] = ns_per_row(
         lambda: gather_kernels.lane_row_sum(ids, tab), n_rows)
+    res["kernel_cold_ns_per_row"] = 1e6 * diag.timed_cold_ms(
+        lambda: gather_kernels.lane_row_sum(ids, tab), dev, reps) / n_rows
     got = gather_kernels.lane_row_sum(ids, tab)
     want = gather_kernels.lane_row_sum_plain(ids, tab)
     res["kernel_matches"] = bool(torch.equal(got.view(torch.int32),

@@ -7,7 +7,9 @@ flags, and keeps nvcc's ``-Xptxas -v`` report (registers, shared memory,
 spills) beside the library as ``.log``. Given several sources it starts one
 ``nvcc`` for each missing library, all at once, and waits for every one.
 ``load`` opens a library with ctypes and declares its entry points, each of
-which returns ``cudaGetLastError()`` after its launch.
+which returns ``cudaGetLastError()`` after its launch. ``grid_sum_buffers``
+holds what a launch of a kernel that ends in ``csrc/block_sum.cuh``'s
+``grid_sum`` (K1, K3, K6) needs besides its inputs.
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+# The grid sum's last-block counter of each (device, stream): two streams
+# never share one, and each launch leaves its counter at 0.
+_counters = {}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -111,11 +116,13 @@ def check(name, t, dtype, shape):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def launch(fn, *args):
+def launch(fn, *args, device=None):
     """Call the C entry point ``fn`` with each tensor argument passed as its
-    device pointer and the current stream of the tensors' device appended;
-    raises if the launch failed (``fn`` returns ``cudaGetLastError()``)."""
-    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    device pointer and the current stream of ``device`` (by default the
+    tensors' device) appended; raises if the launch failed (``fn`` returns
+    ``cudaGetLastError()``)."""
+    dev = device or next(a.device for a in args
+                         if isinstance(a, torch.Tensor))
     with torch.cuda.device(dev):
         err = fn(*[ctypes.c_void_p(a.data_ptr())
                    if isinstance(a, torch.Tensor) else a for a in args],
@@ -123,3 +130,19 @@ def launch(fn, *args):
     if err != 0:
         raise RuntimeError(f"{fn.__name__}: CUDA launch failed with error "
                            f"{err}")
+
+
+def grid_sum_buffers(device, n_out, slots, blocks):
+    """The sums ``out`` [n_out], the blocks' partial rows [blocks, slots]
+    and the last-block counter of one launch of a ``grid_sum`` kernel with
+    rows of ``slots`` floats on the current stream. ``out`` and the rows
+    share one allocation: the kernel writes ``slots`` sums at ``out``'s
+    address, and the rows start 16-byte aligned after them."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    counter = _counters.get(key)
+    if counter is None:  # zeroed once; every launch leaves it at 0
+        counter = _counters[key] = torch.zeros(1, dtype=torch.int32,
+                                               device=device)
+    buf = torch.empty(slots * (blocks + 1), dtype=torch.float32,
+                      device=device)
+    return buf[:n_out], buf[slots:], counter

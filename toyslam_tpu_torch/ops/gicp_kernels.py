@@ -3,8 +3,9 @@
 
 ``gicp_terms`` takes CPU tensors to ``gicp_terms_plain`` and launches the
 hand-written CUDA kernel (``csrc/gicp_kernels.cu``, sm_90a) for CUDA
-tensors, at any N, or raises; there is no fallback. The kernel takes
-float32 only; the plain version is dtype-generic and is the jnp GN body of
+tensors, at any N, or raises; there is no fallback. A call is one device
+operation: the kernel writes the 27 sums itself. The kernel takes float32
+only; the plain version is dtype-generic and is the jnp GN body of
 ``toyslam_tpu/registration/gicp.py:300-326`` written as the 27 sums.
 
 Layouts: params [12] = R row-major, t; xyz, q [3, N] source and matched
@@ -25,7 +26,9 @@ from toyslam_tpu_torch.core import se3
 from toyslam_tpu_torch.ops import _cuda
 
 N_TERMS = 27
-THREADS = 256  # kThreads in csrc/gicp_kernels.cu
+SLOTS = 28  # kSlots in csrc/gicp_kernels.cu: a partial row, whole float4s
+THREADS = 128  # kThreads there
+PER_THREAD = 2  # kPer there: correspondences a thread
 
 # Kernel launches since the last reset; the wrapper adds one where it
 # launches its kernel and nowhere else.
@@ -64,8 +67,23 @@ def _library():
     global _lib
     if _lib is None:
         p, i64 = ctypes.c_void_p, ctypes.c_longlong
-        _lib = _cuda.load(SOURCE, {"gicp_terms": [p, p, p, p, p, p, i64, p]})
+        _lib = _cuda.load(SOURCE, {
+            "gicp_terms": [p, p, p, p, p, p, p, p, i64, i64, p],
+            "gicp_empty": [i64, p]})
     return _lib
+
+
+def blocks(n):
+    """K6's grid at ``n`` correspondences."""
+    return -(-n // (THREADS * PER_THREAD))
+
+
+def empty_launch(n, device):
+    """Launches an empty kernel on K6's grid at ``n`` correspondences on
+    ``device``'s current stream: the cost of a launch of that shape, for
+    checks beside K6's device time. No path calls it, so it has no launch
+    count."""
+    _cuda.launch(_library().gicp_empty, blocks(n), device=device)
 
 
 def gicp_terms(params, xyz, q, m6, w):
@@ -82,8 +100,10 @@ def gicp_terms(params, xyz, q, m6, w):
         raise ValueError(f"{n} pairs exceed the kernel's int32 indexing")
     if n == 0:
         return torch.zeros(N_TERMS, dtype=torch.float32, device=xyz.device)
-    partials = torch.empty((-(-n // THREADS), N_TERMS), dtype=torch.float32,
-                           device=xyz.device)
-    _cuda.launch(_library().gicp_terms, params, xyz, q, m6, w, partials, n)
+    grid = blocks(n)
+    out, partials, counter = _cuda.grid_sum_buffers(xyz.device, N_TERMS,
+                                                    SLOTS, grid)
+    _cuda.launch(_library().gicp_terms, params, xyz, q, m6, w, partials, out,
+                 counter, n, grid)
     LAUNCHES["gicp_terms"] += 1
-    return partials.sum(0)  # fixed-order reduction over blocks
+    return out

@@ -45,9 +45,6 @@ LAUNCHES = {"ndt_terms_gathered": 0, "ndt_gather_repack": 0,
 
 SOURCE = _cuda.CSRC / "ndt_kernels.cu"
 _lib = None
-# The grid sum's last-block counter of each (device, stream): two streams
-# never share one, and each launch leaves its counter at 0.
-_counters = {}
 
 
 def reset_launch_counts():
@@ -276,20 +273,6 @@ def _blocks(n):
     return min(-(-n * LANES // THREADS), MAX_BLOCKS)
 
 
-def _grid_sum_buffers(device, blocks):
-    """The sums, the blocks' partial rows and the last-block counter of one
-    launch of K1 or K3 on the current stream."""
-    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
-    counter = _counters.get(key)
-    if counter is None:  # zeroed once; every launch leaves it at 0
-        counter = _counters[key] = torch.zeros(1, dtype=torch.int32,
-                                               device=device)
-    out = torch.empty(N_TERMS, dtype=torch.float32, device=device)
-    partials = torch.empty((blocks, N_TERMS), dtype=torch.float32,
-                           device=device)
-    return out, partials, counter
-
-
 def ndt_neighbor_hash(params, xyz, mask, min_b, div, cap, inv_leaf, offsets):
     """K1's neighbour hash alone, ``(h, nvid, okm)`` [K*N] offset-major, for
     checks against ``ndt_neighbor_hash_plain``. On the card it launches
@@ -333,7 +316,8 @@ def ndt_terms_packed(params, xyz, stats10):
         raise ValueError(f"{kn} pairs are not K <= {MAX_OFFSETS} x {n} "
                          f"points under 2**31")
     blocks = _blocks(n)
-    out, partials, counter = _grid_sum_buffers(xyz.device, blocks)
+    out, partials, counter = _cuda.grid_sum_buffers(
+        xyz.device, N_TERMS, N_TERMS, blocks)
     _cuda.launch(_library().ndt_terms_packed, params, xyz, stats10, partials,
                  out, counter, n, kn // n, blocks)
     LAUNCHES["ndt_terms_packed"] += 1
@@ -353,7 +337,8 @@ def ndt_terms_gathered(params, xyz, mask, table, min_b, div, inv_leaf,
     cap = table.shape[0]
     K = _check_hash(mask, min_b, div, cap, offsets, n)
     blocks = _blocks(n)
-    out, partials, counter = _grid_sum_buffers(xyz.device, blocks)
+    out, partials, counter = _cuda.grid_sum_buffers(
+        xyz.device, N_TERMS, N_TERMS, blocks)
     _cuda.launch(_library().ndt_terms_gathered, params, xyz, mask, table,
                  min_b, div, offsets, partials, out, counter, n, K, inv_leaf,
                  cap - 1, blocks)
