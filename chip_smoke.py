@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``toyslam_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once) and holds each against its plain PyTorch
-version on the card. Then it drives four paths through the entry points a
+version on the card. Then it drives five paths through the entry points a
 user calls, each with the launch counts set to 0 just before it and read
 just after:
 
@@ -17,7 +17,14 @@ just after:
 - the bf16-split ranking diagnostic ``diag.diag_bf16_concat`` at 16384 x
   16384, all five modes (D1);
 - the row-gather diagnostic ``diag.profile_gather_modes`` at the fleet's
-  shape, 64 lanes x 8192 rows x 16 columns, 57344 ids a lane (D2).
+  shape, 64 lanes x 8192 rows x 16 columns, 57344 ids a lane (D2);
+- mapping: ``ndt_mapping`` over the odometry scans into a 65536-voxel map
+  (K2, K3), then ``mapping_init``/``mapping_step`` with a checkpoint after
+  scan 7, coarse-to-fine ``ndt_odometry`` over 8 scans, the drifting
+  64-scan sequence of the JAX package's golden-chain test through
+  ``ndt_mapping``, and the app ``python -m
+  toyslam_tpu_torch.apps.mapping_demo`` (batch, ``--stream``,
+  ``--resume``) on 6 of the scans written as PCDs.
 
 It checks that every align converged and improved on its identity guess
 against the generated ground truth, that the card's exact NDT align lands
@@ -28,7 +35,16 @@ bit against the plain hash; K1 and K3 at every evaluation of the plain
 odometry) and are bit-identical on a rerun, that one NDT evaluation is
 three device operations and one K6 call one, counts the host syncs and
 K4's rescored columns, and prints the timings with the card's name and
-power limit. The line
+power limit. For mapping it checks that the map never fills, that its
+poses equal the odometry's bit for bit, that chained steps and a resume
+equal the batch run bit for bit, that the merge adds no host sync, that
+the card's map matches the same merges on the CPU (at most 0.1 % of
+voxels differ, means within 1e-4 m), that coarse-to-fine runs the same
+through kernels and plain versions and sums both stages' evaluations,
+that the trajectory lies within the golden chain's bounds (ATE rmse
+1e-3 m aligned, 5e-3 m unaligned max; ``tests/golden_ndt.py`` in f64 on
+the same downsampled clouds), and that the app's batch, stream and resume
+files are equal. The line
 before the card's line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it. There is no CPU path: without a CUDA
@@ -38,8 +54,10 @@ device the script exits with 1.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
@@ -61,6 +79,17 @@ ALIGN64_TOL_M, ALIGN64_TOL_RAD = 1e-3, 1e-3
 NN_SHARE = 0.999  # K5 entries within 1 bf16 ulp
 GICP_TOL_M, GICP_TOL_RAD = 1e-4, 1e-4  # kernel vs plain GICP pose
 ICP_TOL_M, ICP_TOL_RAD = 1e-3, 1e-3  # kernel vs plain ICP pose
+# Mapping (phases 12-18): the app's default map capacity, the map's bounds
+# on the card against the same merges on the CPU, the JAX package's
+# coarse leaf and golden-chain bounds (tests/test_ndt.py).
+MAP_CAPACITY = 65536
+CKPT_SCAN = 7
+MAP_DIFFER_MAX = 1e-3  # share of voxels on one side only
+MAP_MEAN_TOL_M = 1e-4  # matched voxels' means
+COARSE_LEAF, COARSE_SCANS = 0.9, 8
+GOLDEN_SCANS = 64
+GOLDEN_RMSE_M, GOLDEN_MAX_M = 1e-3, 5e-3
+APP_SCANS = 6
 # Sanity bounds against ground truth (the data, not the port, limits the
 # accuracy: an align can settle in a local minimum on the ring-sampled
 # ground). Zero-motion estimates would give a 4.5 m ATE.
@@ -335,6 +364,339 @@ def pose_diff(Ta, Tb):
             rotation_angle(Ta[:3, :3], Tb[:3, :3]))
 
 
+def golden_chain(clouds, ncfg):
+    """The f64 golden NDT (``tests/golden_ndt.py``, exact pclomp control
+    flow) chained over clouds [n, 3] f64 with the odometry's warm start:
+    world positions [S, 3]."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import golden_ndt
+
+    pose, prev_T = np.eye(4), np.eye(4)
+    out = [pose[:3, 3].copy()]
+    for k in range(1, len(clouds)):
+        leaves, min_b, max_b, div = golden_ndt.build_map(clouds[k - 1],
+                                                         ncfg.resolution)
+        prev_T, _, _, _ = golden_ndt.align(
+            leaves, min_b, max_b, div, clouds[k], cfg_res=ncfg.resolution,
+            step_size=ncfg.step_size, eps=ncfg.transformation_epsilon,
+            max_iter=ncfg.max_iterations, guess=prev_T)
+        pose = pose @ prev_T
+        out.append(pose[:3, 3].copy())
+    return np.stack(out)
+
+
+def voxel_means(cloud, leaf):
+    """{voxel key: mean} of a map's valid rows; a mean lies in its own
+    voxel, so floor(mean / leaf) names the voxel in either map."""
+    pts = cloud.xyzi[cloud.mask].double().cpu().numpy()
+    keys = np.floor(pts[:, :3] / leaf).astype(np.int64)
+    return {tuple(k): p for k, p in zip(keys, pts)}
+
+
+def run_app(*args):
+    """``python -m toyslam_tpu_torch.apps.mapping_demo`` from the repo
+    root: (stdout, the map's point count it printed)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "toyslam_tpu_torch.apps.mapping_demo",
+         *map(str, args)], capture_output=True, text=True, timeout=600,
+        cwd=Path(__file__).resolve().parent)
+    check(proc.returncode == 0, f"mapping_demo {args[2:]} exited "
+                                f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout, int(re.search(r"map\.pcd \((\d+) pts\)",
+                                      proc.stdout).group(1))
+
+
+def mapping_path(scans, scan_mask, xyzi, mask, cfg, odo_out, a_xyzi,
+                 a_mask):
+    """Phases 12-18: the mapping slice on the card. Returns the kernels'
+    launch counts of the mapping run."""
+    import torch
+
+    from toyslam_tpu_torch.core import pcd_io, pointcloud
+    from toyslam_tpu_torch.diag import ndt_odometry_edge
+    from toyslam_tpu_torch.ops import ndt_kernels
+    from toyslam_tpu_torch.pipelines import odometry
+    from toyslam_tpu_torch.registration import ndt
+    from toyslam_tpu_torch.utils import checkpoint, evalio
+
+    S = scans.shape[0]
+    mcfg = cfg._replace(keep_intensity=True)
+
+    # 12. ndt_mapping at full width, counts reset just before it.
+    ndt_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    mout = odometry.ndt_mapping(scans, scan_mask, MAP_CAPACITY, cfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    map_launch = dict(ndt_kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    again = odometry.ndt_mapping(scans, scan_mask, MAP_CAPACITY, cfg)
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - t0
+    card = card_line()
+    print(f"phase 12 mapping: ndt_mapping over the {S} odometry scans, "
+          f"map capacity {MAP_CAPACITY} at {cfg.map_leaf} m; launches "
+          f"{map_launch}; converged {mout.odometry.converged.tolist()}")
+    check(map_launch["ndt_gather_repack"] > 0
+          and map_launch["ndt_terms_packed"] > 0,
+          "K2 or K3 was never launched in the mapping path")
+    check(bool(mout.odometry.converged.all()), "a mapping align did not "
+                                               "converge")
+    check(torch.equal(again.odometry.poses, mout.odometry.poses)
+          and torch.equal(again.map_xyzi, mout.map_xyzi),
+          "a mapping rerun differs")
+
+    # 13. The poses against phase 4's odometry (keep_intensity off there).
+    same = torch.equal(mout.odometry.poses, odo_out.poses)
+    d_m = float((mout.odometry.poses.double()
+                 - odo_out.poses.double())[:, :3, 3].abs().max())
+    print(f"phase 13 mapping poses vs phase 4's odometry poses: "
+          f"bit-identical {same} (max {d_m:.3g} m)")
+    check(same, "mapping poses differ from the odometry poses")
+
+    # 14. Stream: mapping_init + mapping_step, a checkpoint after scan 7;
+    #     the map's voxel count after every scan.
+    tmp = tempfile.TemporaryDirectory()
+    ckpt = Path(tmp.name) / "state.npz"
+    state = odometry.mapping_init(scans[0], scan_mask[0], MAP_CAPACITY, cfg)
+    counts = [int(state.map_cloud.mask.sum())]
+    poses, steps = [state.odometry.pose], []
+    for i in range(1, S):
+        steps.append((state.map_cloud, scans[i], scan_mask[i]))
+        state, o = odometry.mapping_step(state, scans[i], scan_mask[i], cfg)
+        poses.append(o[0])
+        counts.append(int(state.map_cloud.mask.sum()))
+        if i == CKPT_SCAN:
+            checkpoint.save_checkpoint(ckpt, state)
+    print(f"phase 14 stream: map voxels after each scan {counts} (capacity "
+          f"{MAP_CAPACITY})")
+    check(max(counts) < MAP_CAPACITY, "the map reached its capacity and "
+                                      "dropped voxels")
+    check(torch.equal(torch.stack(poses), mout.odometry.poses)
+          and torch.equal(state.map_cloud.xyzi, mout.map_xyzi)
+          and torch.equal(state.map_cloud.mask, mout.map_mask),
+          "chained mapping_step differs from ndt_mapping")
+    template = odometry.mapping_init(scans[0], scan_mask[0], MAP_CAPACITY,
+                                     cfg)
+    back = checkpoint.load_checkpoint(ckpt, template)
+    check(back.map_cloud.xyzi.is_cuda and back.odometry.pose.device.type
+          == "cpu" and back.map_cloud.mask.dtype == torch.bool,
+          "a reloaded checkpoint lost its devices or dtypes")
+    for i in range(CKPT_SCAN + 1, S):
+        back, o = odometry.mapping_step(back, scans[i], scan_mask[i], cfg)
+        check(torch.equal(o[0], mout.odometry.poses[i]),
+              f"resumed pose {i} differs")
+    check(torch.equal(back.map_cloud.xyzi, mout.map_xyzi)
+          and torch.equal(back.map_cloud.mask, mout.map_mask),
+          "the resumed map differs")
+    tmp.cleanup()
+    print(f"  chained steps equal ndt_mapping bit for bit (poses, map xyzi "
+          f"and mask); resumed from the checkpoint after scan {CKPT_SCAN} "
+          f"on the card: bit-identical")
+
+    # Host syncs: the merge alone, and a mapping step against the same
+    # scan's odometry step.
+    map_prev, scan_k, mask_k = steps[-1]
+    ds_k = odometry._downsample(scan_k, mask_k, mcfg)
+    pose_k = mout.odometry.poses[S - 1]
+    _, merge_syncs = count_syncs(lambda: odometry._merge_into_map(
+        map_prev, ds_k, pose_k, mcfg))
+    pre = odometry.MappingState(
+        odometry.OdometryState(odometry._downsample(
+            scans[S - 2], scan_mask[S - 2], mcfg),
+            mout.odometry.poses[S - 2], mout.odometry.pairwise[S - 2]),
+        map_prev)
+    _, step_syncs = count_syncs(lambda: odometry.mapping_step(
+        pre, scan_k, mask_k, cfg))
+    _, odo_syncs = count_syncs(lambda: odometry.odometry_step(
+        pre.odometry, scan_k, mask_k, mcfg))
+    merge_wait = host_wait_ms(lambda: odometry._merge_into_map(
+        map_prev, ds_k, pose_k, mcfg))
+    merge_ms, _ = host_ms(lambda: odometry._merge_into_map(
+        map_prev, ds_k, pose_k, mcfg))
+    n_step, n_odo = sum(step_syncs.values()), sum(odo_syncs.values())
+    print(f"  host syncs (sync debug mode): the merge alone {merge_syncs}; "
+          f"a mapping step {n_step}, its odometry step {n_odo}; the merge "
+          f"waits {merge_wait:.3f} ms while the card spins 50 ms")
+    check(not merge_syncs and n_step == n_odo and merge_wait < 25.0,
+          "the merge adds a host sync")
+    wall, busy, n_ops, top = device_profile(lambda: odometry._merge_into_map(
+        map_prev, ds_k, pose_k, mcfg))
+    print(f"  torch.profiler, one merge: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms, {n_ops} device operations; top by device time: "
+          f"{[(key[:90], calls, round(ms, 4)) for key, calls, ms in top]}")
+    print(f"  timings ({card}), host clock: ndt_mapping "
+          f"{(S - 1) / map_s:.2f} scans/s ({1e3 * map_s / (S - 1):.2f} "
+          f"ms/scan, second run; first run {(S - 1) / first_s:.2f}); the "
+          f"merge {merge_ms:.3f} ms a scan (mean of 5, closed by a sync, "
+          f"{int(map_prev.mask.sum())} map voxels + "
+          f"{int(ds_k.mask.sum())} scan points)")
+
+    # 15. The map on the card against the same merges on the CPU in f32,
+    #     from the card's own poses and downsampled clouds.
+    ds = [odometry._downsample(scans[k], scan_mask[k], mcfg)
+          for k in range(S)]
+    cpu_map = pointcloud.pad_to(pointcloud.voxel_downsample(
+        pointcloud.PointCloud(ds[0].xyzi.cpu(), ds[0].mask.cpu()),
+        cfg.map_leaf), MAP_CAPACITY)
+    for k in range(1, S):
+        cpu_map = odometry._merge_into_map(
+            cpu_map, pointcloud.PointCloud(ds[k].xyzi.cpu(),
+                                           ds[k].mask.cpu()),
+            mout.odometry.poses[k], mcfg)
+    card_vox = voxel_means(pointcloud.PointCloud(mout.map_xyzi,
+                                                 mout.map_mask),
+                           cfg.map_leaf)
+    cpu_vox = voxel_means(cpu_map, cfg.map_leaf)
+    matched = card_vox.keys() & cpu_vox.keys()
+    differ = len(card_vox.keys() ^ cpu_vox.keys()) / len(
+        card_vox.keys() | cpu_vox.keys())
+    mean_err = max(float(np.abs(card_vox[k][:3] - cpu_vox[k][:3]).max())
+                   for k in matched)
+    bit_same = torch.equal(cpu_map.xyzi, mout.map_xyzi.cpu())
+    print(f"phase 15 map on the card vs the CPU: {len(card_vox)} and "
+          f"{len(cpu_vox)} voxels, {differ:.3%} differ (bound "
+          f"{MAP_DIFFER_MAX:.1%}), largest mean difference over the "
+          f"{len(matched)} matched {mean_err:.3g} m (bound {MAP_MEAN_TOL_M} "
+          f"m); bit-identical {bit_same}")
+    check(differ <= MAP_DIFFER_MAX and mean_err <= MAP_MEAN_TOL_M,
+          "the card's map differs from the CPU's")
+
+    # 16. Coarse-to-fine odometry, kernels and plain versions.
+    c_cfg = cfg._replace(coarse_leaf=COARSE_LEAF)
+    stages, real_align = [], ndt.ndt_align
+
+    def recording(*args, **kw):
+        stages.append(real_align(*args, **kw))
+        return stages[-1]
+
+    ndt_kernels.reset_launch_counts()
+    with mock.patch.object(ndt, "ndt_align", recording):
+        c2f = odometry.ndt_odometry(scans[:COARSE_SCANS],
+                                    scan_mask[:COARSE_SCANS], c_cfg)
+    c_launch = dict(ndt_kernels.LAUNCHES)
+    with ndt_odometry_edge.plain_route():
+        c2f_plain = odometry.ndt_odometry(scans[:COARSE_SCANS],
+                                          scan_mask[:COARSE_SCANS], c_cfg)
+    summed = [a.evaluations + b.evaluations
+              for a, b in zip(stages[::2], stages[1::2])]
+    cp, pp = c2f.poses.double().numpy(), c2f_plain.poses.double().numpy()
+    c_dt = float(np.abs(cp[:, :3, 3] - pp[:, :3, 3]).max())
+    c_dr = max(rotation_angle(a[:3, :3], b[:3, :3]) for a, b in zip(cp, pp))
+    print(f"phase 16 coarse-to-fine odometry (coarse leaf {COARSE_LEAF} m, "
+          f"fine regather {c_cfg.fine_regather}) over {COARSE_SCANS} scans: "
+          f"launches {c_launch}; evaluations {c2f.evaluations.tolist()} "
+          f"(coarse + fine {summed}); kernels vs plain {c_dt:.3g} m, "
+          f"{c_dr:.3g} rad (bounds {PAIRS_TOL_M} m, {PAIRS_TOL_RAD} rad)")
+    check(bool(c2f.converged.all()) and bool(c2f_plain.converged.all())
+          and all(r.converged for r in stages),
+          "a coarse-to-fine align did not converge")
+    check(len(stages) == 2 * (COARSE_SCANS - 1)
+          and c2f.evaluations[1:].tolist() == summed,
+          "coarse-to-fine evaluations are not coarse + fine")
+    check(c_dt <= PAIRS_TOL_M and c_dr <= PAIRS_TOL_RAD,
+          "coarse-to-fine kernels and plain versions disagree")
+
+    # 17. The golden chain: the drifting 64-scan sequence of the JAX
+    #     package's long-sequence parity test, on the align-65k scene.
+    scene = a_xyzi[0][a_mask[0]]
+    rng = np.random.default_rng(0)
+    g_xyzi = np.zeros((GOLDEN_SCANS, len(scene), 4), np.float32)
+    for k in range(GOLDEN_SCANS):
+        c = scene.copy()
+        c[:, 0] -= 0.3 * k
+        c[:, 1] -= 0.1 * k
+        c[:, :3] += rng.normal(0, 0.01, (len(c), 3)).astype(np.float32)
+        g_xyzi[k] = c
+    g_scans = torch.from_numpy(g_xyzi).to(scans.device)
+    g_mask = torch.ones(g_scans.shape[:2], dtype=torch.bool,
+                        device=scans.device)
+    t0 = time.perf_counter()
+    gout = odometry.ndt_mapping(g_scans, g_mask, MAP_CAPACITY, cfg)
+    torch.cuda.synchronize()
+    g_card_s = time.perf_counter() - t0
+    check(bool(gout.odometry.converged.all()), "a golden-sequence align "
+                                               "did not converge")
+
+    def clouds(stack, stack_mask):
+        out = []
+        for k in range(stack.shape[0]):
+            d = odometry._downsample(stack[k], stack_mask[k], mcfg)
+            out.append(d.xyzi[d.mask][:, :3].double().cpu().numpy())
+        return out
+
+    t0 = time.perf_counter()
+    gold = golden_chain(clouds(g_scans, g_mask), cfg.ndt)
+    g_s = time.perf_counter() - t0
+    est = gout.odometry.poses.double().numpy()[:, :3, 3]
+    g_rmse, _ = evalio.ate(est, gold, align=True)
+    g_max = float(np.linalg.norm(est - gold, axis=1).max())
+    print(f"phase 17 golden chain: {GOLDEN_SCANS} scans of the align-65k "
+          f"scene ({len(scene)} points, shifted -0.3/-0.1 m a scan, 1 cm "
+          f"noise), ndt_mapping on the card {g_card_s:.2f} s, the f64 "
+          f"golden chain on the host {g_s:.1f} s: ATE aligned rmse "
+          f"{g_rmse:.4g} m (bound {GOLDEN_RMSE_M}), unaligned max "
+          f"{g_max:.4g} m (bound {GOLDEN_MAX_M})")
+    check(g_rmse < GOLDEN_RMSE_M and g_max < GOLDEN_MAX_M,
+          "the card's trajectory is far from the f64 golden chain")
+    # The JAX package's grid (1 << 15), for the record: its hash aliasing
+    # is why the port's default differs (pipelines/odometry.OdometryConfig).
+    jax_grid = cfg._replace(ndt=cfg.ndt._replace(grid_capacity=1 << 15))
+    jpos = odometry.ndt_mapping(g_scans, g_mask, MAP_CAPACITY, jax_grid)
+    jest = jpos.odometry.poses.double().numpy()[:, :3, 3]
+    print(f"  not gated: at the JAX package's grid_capacity 1 << 15, "
+          f"aligned rmse {evalio.ate(jest, gold, align=True)[0]:.4g} m, "
+          f"unaligned max {np.linalg.norm(jest - gold, axis=1).max():.4g} "
+          f"m")
+    t0 = time.perf_counter()
+    gold256 = golden_chain(clouds(scans, scan_mask), cfg.ndt)
+    est256 = odo_out.poses.double().numpy()[:, :3, 3]
+    r256, _ = evalio.ate(est256, gold256, align=True)
+    e256 = np.linalg.norm(est256 - gold256, axis=1)
+    print(f"  odometry-256k vs its golden chain (not gated; scan 10 is an "
+          f"edge of the data; {time.perf_counter() - t0:.1f} s): aligned "
+          f"rmse {r256:.4g} m, unaligned max {e256.max():.4g} m at scan "
+          f"{int(e256.argmax())}, per scan {np.round(e256, 5).tolist()}")
+
+    # 18. The app end to end: 6 scans as PCDs, batch, stream with
+    #     checkpoints, resume.
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    (root / "scans").mkdir()
+    for k in range(APP_SCANS):
+        pcd_io.write_pcd(root / "scans" / f"cloud_{k}.pcd", xyzi[k][mask[k]])
+    common = ("--capacity", xyzi.shape[1])
+    t0 = time.perf_counter()
+    outs = {"batch": run_app(root / "scans", root / "batch", *common),
+            "stream": run_app(root / "scans", root / "stream", *common,
+                              "--stream", "--checkpoint-every", 2)}
+    (root / "resume").mkdir()
+    (root / "resume" / "mapping_state.npz").write_bytes(
+        (root / "stream" / "mapping_state.npz").read_bytes())
+    outs["resume"] = run_app(root / "scans", root / "resume", *common,
+                             "--stream", "--resume")
+    app_s = time.perf_counter() - t0
+    check("resumed from" in outs["resume"][0], "the app did not resume")
+    files = {name: [(root / name / f).read_bytes()
+                    for f in ("trajectory.txt", "solution.csv", "map.pcd")]
+             for name in outs}
+    n_map = {name: len(pcd_io.read_pcd(root / name / "map.pcd"))
+             for name in outs}
+    print(f"phase 18 mapping_demo on {APP_SCANS} scans ({app_s:.1f} s for "
+          f"three processes): map points printed "
+          f"{ {k: v[1] for k, v in outs.items()} }, read back {n_map}; "
+          f"stream and resume files equal to batch: "
+          f"{files['stream'] == files['batch']}, "
+          f"{files['resume'] == files['batch']}")
+    check(files["stream"] == files["batch"]
+          and files["resume"] == files["batch"],
+          "the app's batch, stream and resume outputs differ")
+    check(all(n_map[k] == outs[k][1] for k in outs),
+          "map.pcd does not hold the printed point count")
+    tmp.cleanup()
+    return map_launch
+
+
 def main() -> int:
     import torch
 
@@ -589,6 +951,8 @@ def main() -> int:
     gate = stats[9] > 0.5
     open_pairs = int(gate.sum())
     open_points = int(gate.view(ev.K, -1).any(0).sum())
+    k2_rows = int(torch.unique(h[okm]).numel())
+    k2_open_rows = int(torch.unique(h[gate]).numel())
     bounds = {
         "ndt_terms_gathered": bound(
             nbytes(aparams, aev.xyz, aev.mask, amap.min_b, amap.div,
@@ -596,8 +960,10 @@ def main() -> int:
             NDT_FLOPS_TRANSFORM * a_valid
             + (NDT_FLOPS_PER_POINT - NDT_FLOPS_TRANSFORM) * a_open_points
             + NDT_FLOPS_PER_PAIR * a_open_pairs),
-        "ndt_gather_repack": bound(nbytes(table, h, nvid, okm)
-                                   + 10 * 4 * kn, 0),
+        # K2 reads the gate of each row an in-bounds pair touches and the
+        # stats of each row an open pair touches, not the whole table.
+        "ndt_gather_repack": bound(nbytes(h, nvid, okm) + 16 * k2_rows
+                                   + 32 * k2_open_rows + 10 * 4 * kn, 0),
         "ndt_terms_packed": bound(
             nbytes(params, ev.xyz) + 4 * kn + 36 * open_pairs + 28 * 4,
             NDT_FLOPS_PER_POINT * open_points
@@ -642,7 +1008,8 @@ def main() -> int:
           f"{a_open_pairs} open of {a_valid * aev.K} pairs of valid points, "
           f"{a_rows} table rows touched, {a_open_rows} of them open; K3 "
           f"{open_points} points with an open gate, {open_pairs} open of "
-          f"{kn} pairs")
+          f"{kn} pairs; K2 {k2_rows} table rows touched, {k2_open_rows} "
+          f"open, of {table.shape[0]}")
     for name, (b_ms, b_by) in offset_major_bounds.items():
         print(f"  {name}: bound {bounds[name][0]:.4f} ms ({bounds[name][1]}; "
               f"{bounds[name][0] / launch_dev_ms[name]:.1%} of the device "
@@ -1083,6 +1450,9 @@ def main() -> int:
           f"{bounds['lane_row_sum'][0]:.4f} ms")
     del got, want, gtab, gids
 
+    map_launch = mapping_path(scans, scan_mask, xyzi, mask, cfg, out,
+                              a_xyzi, a_mask)
+
     print(card)
     kernels = [{
         "name": name, "route": "cuda", "source": source_path,
@@ -1096,6 +1466,9 @@ def main() -> int:
         k4_counts)
     kernels[list(KERNELS).index("gicp_terms")].update(k6_extra)
     kernels[list(KERNELS).index("lane_row_sum")]["cold_ms"] = d2_cold_ms
+    for name in ndt_names:  # the mapping path's own run
+        kernels[list(KERNELS).index(name)]["mapping_launches"] = (
+            map_launch[name])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

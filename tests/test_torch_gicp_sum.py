@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 from toyslam_tpu_torch.ops import gicp_kernels  # noqa: E402
 

@@ -23,6 +23,8 @@ operation a call, at N from 1 to past its 256-correspondence blocks and
 several waves of them. A GICP align on the card within
 1e-3 m / 1e-3 rad of the same align on the CPU (a bf16 tie can swap a
 covariance neighbour; the CPU and the card break top-k ties differently).
+Mapping on the card: poses equal to odometry's bit for bit, and a
+checkpoint that keeps devices and dtypes and resumes bit-identically.
 D1: ``highest`` bit-identical; the split modes within 2^-16 of the largest
 |s.t| (the same exact bf16 products, summed by the tensor core in place of
 the plain version's f32 adds; a bf16-level sum would miss by ~2^-9). D2
@@ -40,8 +42,10 @@ from toyslam_tpu_torch.diag import gicp_call_ops  # noqa: E402
 from toyslam_tpu_torch.ops import gather_kernels, gicp_kernels  # noqa: E402
 from toyslam_tpu_torch.ops import nn_kernels, ranking_kernels  # noqa: E402
 from toyslam_tpu_torch.ops import ndt_kernels  # noqa: E402
+from toyslam_tpu_torch.pipelines import odometry  # noqa: E402
 from toyslam_tpu_torch.registration import gicp, ndt  # noqa: E402
 from toyslam_tpu_torch.sim.urban_scans import spinning_lidar_scans  # noqa: E402
+from toyslam_tpu_torch.utils import checkpoint  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -557,3 +561,53 @@ def test_lane_row_sum_ragged_on_card(cuda, lanes, cap, ids_shape):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     _one_device_operation(lambda: gather_kernels.lane_row_sum(ids, table),
                           "lane_row_sum_kernel")
+
+
+@pytest.fixture(scope="module")
+def mapping_scans(cuda):
+    xyzi, mask, _ = spinning_lidar_scans(2, 5, 32, 1024)
+    return torch.from_numpy(xyzi).to(cuda), torch.from_numpy(mask).to(cuda)
+
+
+def test_mapping_on_card_poses_equal_odometry(cuda, mapping_scans):
+    """Mapping forces keep_intensity; its poses are odometry's bit for bit
+    (the downsample sums each channel on its own), K2 and K3 launched."""
+    xyzi, mask = mapping_scans
+    cfg = odometry.OdometryConfig(work_capacity=8192)
+    ndt_kernels.reset_launch_counts()
+    out = odometry.ndt_mapping(xyzi, mask, 8192, cfg)
+    assert ndt_kernels.LAUNCHES["ndt_gather_repack"] > 0
+    assert ndt_kernels.LAUNCHES["ndt_terms_packed"] > 0
+    odo = odometry.ndt_odometry(
+        xyzi, mask, cfg._replace(keep_intensity=True))
+    assert bool(out.odometry.converged.all())
+    assert torch.equal(out.odometry.poses, odo.poses)
+    assert out.map_xyzi.device.type == "cuda"
+    assert 0 < int(out.map_mask.sum()) < 8192
+
+
+def test_checkpoint_round_trip_on_card(cuda, mapping_scans, tmp_path):
+    """A mapping state saved on the card comes back on the card with its
+    dtypes (f32 clouds, bool masks, host f32 poses), and the resumed run
+    is bit-identical to the run without a break."""
+    xyzi, mask = mapping_scans
+    cfg = odometry.OdometryConfig(work_capacity=8192)
+    full = odometry.ndt_mapping(xyzi, mask, 8192, cfg)
+    state = odometry.mapping_init(xyzi[0], mask[0], 8192, cfg)
+    for i in (1, 2):
+        state, _ = odometry.mapping_step(state, xyzi[i], mask[i], cfg)
+    checkpoint.save_checkpoint(tmp_path / "s.npz", state)
+    template = odometry.mapping_init(xyzi[0], mask[0], 8192, cfg)
+    back = checkpoint.load_checkpoint(tmp_path / "s.npz", template)
+    for got, want in zip(checkpoint._flatten(back),
+                         checkpoint._flatten(state)):
+        assert got[1].device == want[1].device
+        assert got[1].dtype == want[1].dtype
+        assert torch.equal(got[1], want[1])
+    assert back.map_cloud.xyzi.device.type == "cuda"
+    assert back.odometry.pose.device.type == "cpu"
+    for i in range(3, xyzi.shape[0]):
+        back, out = odometry.mapping_step(back, xyzi[i], mask[i], cfg)
+        assert torch.equal(out[0], full.odometry.poses[i])
+    assert torch.equal(back.map_cloud.xyzi, full.map_xyzi)
+    assert torch.equal(back.map_cloud.mask, full.map_mask)

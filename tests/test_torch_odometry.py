@@ -6,7 +6,10 @@ the shipped ``OdometryConfig`` (frozen line search, 4 regathers, eps 1e-3)
 with the working capacity cut to 4096 for the small scans. Bounds: f64
 poses within 1e-8 m (observed ~1e-14) with equal per-scan iterations,
 evaluations and gathers; f32 within 5e-4 m (observed ~2e-4: f32 map sums
-and host Newton steps round differently from JAX's).
+and host Newton steps round differently from JAX's). The same f64 bounds
+hold ``odometry_step``'s tuple against JAX's and the coarse-to-fine
+odometry (a 0.9 m coarse align first, the fine one regathering 0 or 2
+times).
 """
 
 import subprocess
@@ -16,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite's workers share the cores
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -26,6 +30,26 @@ from toyslam_tpu_torch.pipelines import odometry as todo  # noqa: E402
 from toyslam_tpu_torch.sim.urban_scans import spinning_lidar_scans  # noqa: E402
 
 CFG = jodo.OdometryConfig(work_capacity=4096)
+
+
+def _port(scans, dtype):
+    xyzi, mask = scans
+    return torch.from_numpy(xyzi.astype(dtype)), torch.from_numpy(mask)
+
+
+def _cfg(**kw):
+    return convert.odometry_config(CFG._replace(**kw)._asdict())
+
+
+def _assert_poses(got, want, tol):
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_allclose(got[:, :3, :], want[:, :3, :], atol=tol)
+
+
+def _assert_counts(got, want):
+    for f in ("iterations", "evaluations", "gathers"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)))
 
 
 @pytest.fixture(scope="module")
@@ -62,16 +86,81 @@ def test_online_steps_match_batch_and_rerun_is_bit_identical(scans):
     batch = todo.ndt_odometry(xyzi, mask, cfg)
     state = todo.odometry_init(xyzi[0], mask[0], cfg)
     for i in range(1, xyzi.shape[0]):
-        state, res = todo.odometry_step(state, xyzi[i], mask[i], cfg)
+        state, out = todo.odometry_step(state, xyzi[i], mask[i], cfg)
         assert torch.equal(state.pose, batch.poses[i])
-        assert res.iterations == int(batch.iterations[i])
+        assert out[3] == int(batch.iterations[i])
     again = todo.ndt_odometry(xyzi, mask, cfg)
     assert torch.equal(again.poses, batch.poses)
 
 
+def test_odometry_step_returns_jax_tuple(scans):
+    """(pose, T, converged, iterations, trans_probability, evaluations,
+    gathers) equal JAX's, f64; the port adds its host syncs, one an
+    evaluation."""
+    xyzi, mask = scans
+    jx, jm = jnp.asarray(xyzi, np.float64), jnp.asarray(mask)
+    jstate = jax.jit(jodo.odometry_init, static_argnums=2)(jx[0], jm[0], CFG)
+    _, want = jax.jit(jodo.odometry_step, static_argnums=3)(
+        jstate, jx[1], jm[1], CFG)
+    txyzi, tmask = _port(scans, np.float64)
+    cfg = _cfg()
+    state = todo.odometry_init(txyzi[0], tmask[0], cfg)
+    new_state, got = todo.odometry_step(state, txyzi[1], tmask[1], cfg)
+    assert len(want) == 7 and len(got) == 8
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-8)
+    assert got[2] == bool(want[2]) and got[3] == int(want[3])
+    np.testing.assert_allclose(float(got[4]), float(want[4]), rtol=1e-8)
+    assert (got[5], got[6]) == (int(want[5]), int(want[6]))
+    assert got[7] == got[5]
+    assert torch.equal(new_state.pose, got[0])
+    assert torch.equal(new_state.prev_T, got[1])
+
+
+@pytest.mark.parametrize("fine_regather", [0, 2])
+def test_coarse_to_fine_matches_jax(scans, fine_regather):
+    """Coarse 0.9 m stage (``tests/test_ndt.py``'s value) then the fine
+    align, f64; evaluations and gathers are the two stages' sums."""
+    xyzi, mask = scans
+    jcfg = CFG._replace(coarse_leaf=0.9, fine_regather=fine_regather)
+    want = jax.jit(lambda s, m: jodo.ndt_odometry(s, m, jcfg))(
+        jnp.asarray(xyzi, np.float64), jnp.asarray(mask))
+    got = todo.ndt_odometry(*_port(scans, np.float64),
+                            convert.odometry_config(jcfg._asdict()))
+    assert got.converged.all() and np.asarray(want.converged).all()
+    _assert_poses(got.poses, want.poses, 1e-8)
+    _assert_counts(got, want)
+    plain = todo.ndt_odometry(*_port(scans, np.float64), _cfg())
+    assert (got.evaluations[1:] > plain.evaluations[1:]).all()
+
+
+def test_odometry_step_with_coarse_stage_sums_both_aligns(scans):
+    xyzi, mask = _port(scans, np.float64)
+    cfg = _cfg(coarse_leaf=0.9)
+    state = todo.odometry_init(xyzi[0], mask[0], cfg)
+    seen = []
+    real = todo.ndt.ndt_align
+
+    def recording(*args):
+        seen.append(real(*args))
+        return seen[-1]
+
+    todo.ndt.ndt_align = recording
+    try:
+        _, out = todo.odometry_step(state, xyzi[1], mask[1], cfg)
+    finally:
+        todo.ndt.ndt_align = real
+    coarse, fine = seen
+    assert coarse.converged and fine.converged
+    assert fine.evaluations == out[5] - coarse.evaluations
+    assert out[6] == coarse.gathers + fine.gathers
+    assert out[7] == coarse.host_syncs + fine.host_syncs
+
+
 def test_port_imports_without_jax():
     """Every module of the port imports, and an NDT, an ICP and a GICP align
-    run, with JAX made unimportable."""
+    and the mapping app with its checkpoints run, with JAX made
+    unimportable."""
     code = """
 import sys
 sys.modules["jax"] = None
@@ -92,6 +181,18 @@ from toyslam_tpu_torch.registration import gicp, icp
 small = pointcloud.from_numpy(pts[:500], capacity=512, device="cpu")
 assert icp.icp_align(small, small).converged
 assert gicp.gicp_align(small, small).converged
+import tempfile
+from pathlib import Path
+from toyslam_tpu_torch.apps import mapping_demo
+from toyslam_tpu_torch.core import pcd_io
+from toyslam_tpu_torch.utils import checkpoint
+with tempfile.TemporaryDirectory() as d:
+    for k in range(3):
+        pcd_io.write_pcd(f"{d}/cloud_{k}.pcd", pts + [0.2 * k, 0.0, 0.0])
+    args = [d, f"{d}/out", "--device", "cpu", "--capacity", "2048",
+            "--map-capacity", "2048", "--stream", "--checkpoint-every", "1"]
+    assert mapping_demo.main(args) == 0
+    assert (Path(d) / "out" / "mapping_state.npz").exists()
 assert not any(k == "jax" or k.startswith(("jax.", "toyslam_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("ok")

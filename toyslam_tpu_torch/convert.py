@@ -1,8 +1,9 @@
 """Carry the JAX package's state across to the port.
 
 Takes plain numpy data (``NDTMap._asdict()``, a PointCloud's arrays, the
-configs' ``_asdict()``) and returns the port's objects, so that one map or
-cloud built by either package can feed both. Tensors go to the card unless
+configs' ``_asdict()``, the odometry and mapping states' fields) and
+returns the port's objects, so that one map, cloud or pipeline state built
+by either package can feed both. Tensors go to the card unless
 ``device`` names another; without a card the default raises. Imports
 nothing of JAX: callers convert their arrays with ``numpy.asarray`` first.
 """
@@ -15,7 +16,9 @@ import numpy as np
 import torch
 
 from toyslam_tpu_torch.core.pointcloud import PointCloud
-from toyslam_tpu_torch.pipelines.odometry import OdometryConfig
+from toyslam_tpu_torch.pipelines.odometry import (MappingState,
+                                                  OdometryConfig,
+                                                  OdometryState)
 from toyslam_tpu_torch.registration.gicp import GICPConfig
 from toyslam_tpu_torch.registration.icp import ICPConfig
 from toyslam_tpu_torch.registration.ndt import NDTConfig, NDTMap
@@ -62,3 +65,29 @@ def odometry_config(fields: Mapping) -> OdometryConfig:
         out["ndt"] = ndt_config(sub if isinstance(sub, Mapping)
                                 else sub._asdict())
     return OdometryConfig(**out)
+
+
+def _fields(x) -> Mapping:
+    """A Mapping as it is; a NamedTuple (the JAX package's states and
+    clouds) as its ``_asdict()``."""
+    return x if isinstance(x, Mapping) else x._asdict()
+
+
+def odometry_state(fields, device="cuda") -> OdometryState:
+    """The fields of the JAX ``OdometryState`` (``prev_ds`` as a cloud's
+    fields, ``pose`` and ``prev_T`` as arrays) -> the port's: the cloud on
+    ``device``, the poses on the host, where the port keeps them."""
+    fields = _fields(fields)
+    prev = _fields(fields["prev_ds"])
+    return OdometryState(point_cloud(prev["xyzi"], prev["mask"], device),
+                         _tensor(fields["pose"], "cpu"),
+                         _tensor(fields["prev_T"], "cpu"))
+
+
+def mapping_state(fields, device="cuda") -> MappingState:
+    """The fields of the JAX ``MappingState`` -> the port's (see
+    :func:`odometry_state`; the map cloud on ``device``)."""
+    fields = _fields(fields)
+    m = _fields(fields["map_cloud"])
+    return MappingState(odometry_state(fields["odometry"], device),
+                        point_cloud(m["xyzi"], m["mask"], device))

@@ -68,8 +68,15 @@ def pad_to(cloud: PointCloud, capacity: int) -> PointCloud:
                                            device=cloud.mask.device)], 0))
 
 
+def _full(value, like):
+    """A 0-d tensor of ``value`` on ``like``'s device, filled there: a
+    ``torch.tensor`` of a Python number would be a host-to-device copy
+    that waits on the device."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
+
+
 def _min_max(x, y, z, mask):
-    big = torch.tensor(PAD_COORD, dtype=x.dtype, device=x.device)
+    big = _full(PAD_COORD, x)
     mins = torch.stack([torch.where(mask, c, big).amin() for c in (x, y, z)])
     maxs = torch.stack([torch.where(mask, c, -big).amax() for c in (x, y, z)])
     return mins, maxs
@@ -88,7 +95,7 @@ def _voxel_ids(x, y, z, mask, inv_leaf, min_b, div):
 def voxel_grid(x, y, z, mask, leaf_size: float):
     """Bounding voxel grid of the valid points: ``(inv_leaf, min_b, div,
     vid)`` with int32 ``min_b``/``div`` [3] and per-point ids."""
-    inv_leaf = torch.tensor(1.0 / leaf_size, dtype=x.dtype, device=x.device)
+    inv_leaf = _full(1.0 / leaf_size, x)
     mn, mx = _min_max(x, y, z, mask)
     min_b = torch.floor(mn * inv_leaf).to(torch.int32)
     max_b = torch.floor(mx * inv_leaf).to(torch.int32)

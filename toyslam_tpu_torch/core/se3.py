@@ -4,6 +4,7 @@
 NDT's 6-vector pose chart is ``p = [tx ty tz roll pitch yaw]`` with
 ``R = Rx(roll) @ Ry(pitch) @ Rz(yaw)``; ``rot_to_euler_xyz`` follows
 Eigen's ``eulerAngles(0, 1, 2)`` branch (first angle in ``[0, pi]``).
+``rot_to_quat`` feeds the trajectory writers of ``utils/evalio``.
 Every function is dtype-generic and works on any device.
 """
 
@@ -100,3 +101,31 @@ def svd_solve(A, b):
                         torch.zeros_like(s))
     ub = (u * b[..., :, None]).sum(-2)  # u^T b
     return (vt * (s_inv * ub)[..., :, None]).sum(-2)  # vt^T (s_inv * u^T b)
+
+
+def rot_to_quat(R):
+    """Rotation [..., 3, 3] -> unit quaternion [..., 4] (w, x, y, z) by
+    Shepperd's method, branch-free: all four candidates, the one of the
+    largest diagonal term kept (the first on a tie), then normalised."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22, 1.0 - m00 + m11 - m22,
+                      1.0 - m00 - m11 + m22], -1)
+    qw = torch.sqrt(torch.clamp(qw, min=1e-30)) * 0.5
+    w0, x1, y2, z3 = qw[..., 0], qw[..., 1], qw[..., 2], qw[..., 3]
+    cand = torch.stack([
+        torch.stack([w0, (m21 - m12) / (4 * w0), (m02 - m20) / (4 * w0),
+                     (m10 - m01) / (4 * w0)], -1),
+        torch.stack([(m21 - m12) / (4 * x1), x1, (m01 + m10) / (4 * x1),
+                     (m02 + m20) / (4 * x1)], -1),
+        torch.stack([(m02 - m20) / (4 * y2), (m01 + m10) / (4 * y2), y2,
+                     (m12 + m21) / (4 * y2)], -1),
+        torch.stack([(m10 - m01) / (4 * z3), (m02 + m20) / (4 * z3),
+                     (m12 + m21) / (4 * z3), z3], -1),
+    ], -2)
+    idx = torch.argmax(qw, dim=-1)
+    q = torch.take_along_dim(cand, idx[..., None, None].expand(
+        idx.shape + (1, 4)), dim=-2)[..., 0, :]
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)

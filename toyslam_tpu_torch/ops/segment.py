@@ -49,7 +49,7 @@ def seg_reduce(keys, vals, first, pos, num_segments: int):
     starts = n_valid.expand(S + 2).clone()
     idx = torch.where(first & (pos <= S), pos, S + 1)
     starts.scatter_(0, idx, torch.arange(n, device=keys.device))
-    starts[S + 1] = n
+    starts[S + 1:].fill_(n)  # a fill, not a copy from the host
     sums = torch.segment_reduce(vals.contiguous(), "sum", offsets=starts,
                                 axis=0, unsafe=True)
     return sums[:S], starts[:S]
