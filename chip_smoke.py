@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from ``toyslam_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once) and holds each against its plain PyTorch
-version on the card. Then it drives five paths through the entry points a
+version on the card. Then it drives its paths through the entry points a
 user calls, each with the launch counts set to 0 just before it and read
 just after:
 
@@ -24,7 +24,16 @@ just after:
   64-scan sequence of the JAX package's golden-chain test through
   ``ndt_mapping``, and the app ``python -m
   toyslam_tpu_torch.apps.mapping_demo`` (batch, ``--stream``,
-  ``--resume``) on 6 of the scans written as PCDs.
+  ``--resume``) on 6 of the scans written as PCDs;
+- the align app ``python -m toyslam_tpu_torch.apps.align --json`` on the
+  align-65k pair written as PCDs (ICP, GICP, NDT DIRECT7/1/27: K1, K4-K6),
+  then the NDT search helpers on its clouds (``fitness_score`` through
+  K4, ``lookup_neighbors``, ``nearest_k_search``, ``radius_search``);
+- ICP-SLAM: the app ``toyslam_tpu_torch.apps.icp_demo`` at its defaults
+  and ``pipelines/icp_slam.icp_slam`` on its scenario (K4);
+- ``pipelines/fusion.ndt_eskf_fusion`` over the 16 odometry scans with a
+  seeded IMU log of 20 ticks a scan (K2, K3, then the ESKF), and the app
+  ``toyslam_tpu_torch.apps.uwb_demo`` at its defaults.
 
 It checks that every align converged and improved on its identity guess
 against the generated ground truth, that the card's exact NDT align lands
@@ -44,7 +53,22 @@ through kernels and plain versions and sums both stages' evaluations,
 that the trajectory lies within the golden chain's bounds (ATE rmse
 1e-3 m aligned, 5e-3 m unaligned max; ``tests/golden_ndt.py`` in f64 on
 the same downsampled clouds), and that the app's batch, stream and resume
-files are equal. The line
+files are equal. For the later paths it checks that the align app's five
+methods converge and improve on the identity, that each fitness it prints
+equals ``fitness_score`` on the same clouds and pose and that each method
+launched its kernels, and that on the app's own clouds (at most 24576
+voxels) each method's kernels agree with their plain versions at every
+call of its plain route (K4 bit for bit, K5 within 1 bf16 ulp, K1 and K6
+within 2e-6 of their terms' magnitudes), with the two routes' poses
+within the kernel-vs-plain bounds of the NDT and registration phases;
+that ``fitness_score`` through K4 equals its plain
+route bit for bit and the f64 CPU result within 2e-6; that the search
+helpers agree with the CPU's; that ``icp_demo`` and ``uwb_demo`` pass
+their gates (``uwb_demo``'s fused ATE also below its trilateration's);
+that ``icp_slam`` through K4 equals its plain route bit for bit; and that
+the fusion's poses equal phase 4's odometry bit for bit, its fused track
+lies within 5e-6 m of the same log through the f64 ESKF on the CPU and
+``eskf_run`` makes no host sync. The line
 before the card's line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it. There is no CPU path: without a CUDA
@@ -72,6 +96,12 @@ ALIGN_FOV = (-30.67, 10.67)
 REG_CAPACITY = 32768  # the 0.1 m pair's 27201/27316 points, nothing cut
 REPS = 20  # timed launches per kernel, after warm-up
 TERMS_RTOL = 1e-4  # K1/K3/K6 sums vs plain, relative to the group's largest
+# K1/K3/K6 sums vs plain along a path, relative to the summed magnitudes
+# of each sum's terms: two f32 sums of N terms in other orders differ by up
+# to ~2 log2(N) 2^-24, 1.8e-6 at N 24576 (the card read 8.66e-7 on K6 at
+# GICP's optimum, 1.83e-7 on K1; NVIDIA H100 80GB HBM3, 700 W); one
+# pair's terms dropped from 24576 would read ~4e-5.
+TERMS_MAG_RTOL = 2e-6
 PAIRS_TOL_M, PAIRS_TOL_RAD = 1e-3, 1e-4  # kernel vs plain odometry poses
 # The card's f32 exact align vs the port's f64 align on the CPU (JAX and
 # the port agree to 3.5e-5 m in f32 on this pair).
@@ -95,6 +125,25 @@ APP_SCANS = 6
 # ground). Zero-motion estimates would give a 4.5 m ATE.
 PAIR_MEDIAN_MAX_M = 0.02  # median per-scan relative translation error
 ATE_MAX_M = 1.0
+# Phases 19-23: the align app, the search helpers, ICP-SLAM, NDT + ESKF
+# fusion and the UWB app.
+APP_TIMEOUT_S = 600
+# Bounds at about twice what the card showed (NVIDIA H100 80GB HBM3):
+# fitness_score on the card (f32, K4) against the port's f64 on the CPU,
+# relative (observed 1.01e-6); the centroid searches' f32 squared
+# distances |q|^2 + |c|^2 - 2 q.c on the card (cuBLAS) against the CPU's
+# f32, relative to |q|^2 + |c|^2, where the cancellation leaves a few f32
+# ulps (observed 1.6e-7); the fused track on the card (f32) against the
+# same log through the f64 ESKF on the CPU, in m (observed 1.98e-6).
+FIT64_RTOL = 2e-6
+SEARCH_D2_RTOL = 2.0 ** -21
+FUSED_TOL_M = 5e-6
+SEARCH_QUERIES = 4096
+IMU_PER_SCAN = 20
+SCAN_PERIOD_S = 0.1  # the generator's 0.3 m and 0.004 rad a scan at 10 Hz
+NEW_PATH_KERNELS = ("ndt_terms_gathered", "ndt_gather_repack",
+                    "ndt_terms_packed", "nearest_neighbor", "neg_dist_bf16",
+                    "gicp_terms")
 # The card's published peaks (H100 SXM at 700 W) for the bounds.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -393,17 +442,27 @@ def voxel_means(cloud, leaf):
     return {tuple(k): p for k, p in zip(keys, pts)}
 
 
+def run_module(module, *args):
+    """``python -m <module> <args>`` from the repo root: (exit code,
+    stdout, host seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *map(str, args)],
+                          capture_output=True, text=True,
+                          timeout=APP_TIMEOUT_S,
+                          cwd=Path(__file__).resolve().parent)
+    if proc.returncode not in (0, 1):
+        raise SmokeFailure(f"{module} exited {proc.returncode}: "
+                           f"{proc.stderr[-2000:]}")
+    return proc.returncode, proc.stdout, time.perf_counter() - t0
+
+
 def run_app(*args):
     """``python -m toyslam_tpu_torch.apps.mapping_demo`` from the repo
     root: (stdout, the map's point count it printed)."""
-    proc = subprocess.run(
-        [sys.executable, "-m", "toyslam_tpu_torch.apps.mapping_demo",
-         *map(str, args)], capture_output=True, text=True, timeout=600,
-        cwd=Path(__file__).resolve().parent)
-    check(proc.returncode == 0, f"mapping_demo {args[2:]} exited "
-                                f"{proc.returncode}: {proc.stderr[-2000:]}")
-    return proc.stdout, int(re.search(r"map\.pcd \((\d+) pts\)",
-                                      proc.stdout).group(1))
+    rc, stdout, _ = run_module("toyslam_tpu_torch.apps.mapping_demo", *args)
+    check(rc == 0, f"mapping_demo {args[2:]} exited {rc}")
+    return stdout, int(re.search(r"map\.pcd \((\d+) pts\)",
+                                 stdout).group(1))
 
 
 def mapping_path(scans, scan_mask, xyzi, mask, cfg, odo_out, a_xyzi,
@@ -695,6 +754,457 @@ def mapping_path(scans, scan_mask, xyzi, mask, cfg, odo_out, a_xyzi,
           "map.pcd does not hold the printed point count")
     tmp.cleanup()
     return map_launch
+
+
+def distinct(d2, tol):
+    """[Q, k] mask of entries more than tol from both neighbours in their
+    row (where a ranking cannot swap)."""
+    import torch
+
+    gap = (d2[:, 1:] - d2[:, :-1]).abs() > tol
+    ok = torch.ones_like(d2, dtype=torch.bool)
+    ok[:, 1:] &= gap
+    ok[:, :-1] &= gap
+    return ok
+
+
+def gicp_pair_terms(params, xyz, q, m6, w):
+    """The plain per-correspondence terms [27, N] behind one K6 call (the
+    terms that ``gicp_terms_plain`` sums)."""
+    import torch
+
+    from toyslam_tpu_torch.core import se3
+    from toyslam_tpu_torch.ops import gicp_kernels as g
+
+    R = params[:9].reshape(3, 3)
+    Rp = (R @ xyz).T
+    r = Rp + params[9:12] - q.T
+    M = m6[g._SYM].T.reshape(-1, 3, 3)
+    Mr = (M @ r[:, :, None])[..., 0]
+    S = se3.skew(Rp)
+    w1, w3 = w[:, None], w[:, None, None]
+    iu, ju = g._UPPER
+    return torch.cat([Mr * w1, torch.linalg.cross(Rp, Mr) * w1,
+                      (w3 * M)[:, iu, ju],
+                      (w3 * (M @ S.transpose(1, 2))).reshape(-1, 9),
+                      (w3 * (S @ M @ S.transpose(1, 2)))[:, iu, ju]], 1).T
+
+
+def kernel_err(name, args, got, want):
+    """(error, within its bound) of a kernel's output against its plain
+    version's on the same inputs: K2 and K4 bit for bit, K5 within 1 bf16
+    ulp on NN_SHARE of the valid columns' entries (a column is valid where
+    its |t|^2 is below the sentinel), K1, K3 and K6 within TERMS_MAG_RTOL
+    of the magnitudes of each sum's terms. Along a path the sums are
+    taken near an optimum too, where a gradient cancels to far below its
+    terms; an error relative to the largest sum of a group (phase 7's
+    check at the identity guess) then measures the cancellation, not the
+    kernel. The error is (relative to the group's largest, relative to
+    the magnitudes)."""
+    import torch
+
+    from toyslam_tpu_torch.diag import ndt_odometry_edge
+
+    if name == "nearest_neighbor":
+        (best, idx), (pbest, pidx) = got, want
+        same = torch.equal(idx, pidx) and torch.equal(
+            best.view(torch.int32), pbest.view(torch.int32))
+        return float((best - pbest).abs().max()), same
+    if name == "ndt_gather_repack":
+        return (float((got - want).abs().max()),
+                torch.equal(got.view(torch.int32), want.view(torch.int32)))
+    if name == "neg_dist_bf16":
+        nd, pd, cols = got.float(), want.float(), args[3] < 1e8
+        diff = (nd - pd)[:, cols]
+        share = float((diff.abs() <= 2.0 ** -8 * pd[:, cols].abs())
+                      .double().mean())
+        return float(diff.abs().max()), share >= NN_SHARE
+    if name == "gicp_terms":
+        rel, _ = terms_err(got, want, GN_GROUPS)
+        terms = gicp_pair_terms(*args)
+    else:
+        rel, _ = terms_err(got, want, NDT_GROUPS)
+        terms = ndt_odometry_edge._pair_terms(name, args)
+    mag = ndt_odometry_edge.magnitude_err(got, want, terms)
+    return (rel, mag), mag <= TERMS_MAG_RTOL
+
+
+def checked_plain_route(calls):
+    """K1-K6's wrappers replaced by their plain versions while the block
+    runs; each call also runs the kernel on the same inputs and appends
+    (name, points, error, within bound) to ``calls``: every
+    kernel held to its plain version at the shapes the path gives it."""
+    from contextlib import ExitStack
+
+    from toyslam_tpu_torch.ops import gicp_kernels, ndt_kernels, nn_kernels
+
+    def checked(mod, name):
+        kernel, plain = getattr(mod, name), getattr(mod, name + "_plain")
+
+        def run(*args):
+            want = plain(*args)
+            got = kernel(*args)
+            rows = (args[0].shape[0] if mod is nn_kernels
+                    else max(args[1].shape))  # the points, either layout
+            calls.append((name, rows, *kernel_err(name, args, got, want)))
+            return want
+        return run
+
+    stack = ExitStack()
+    for mod in (ndt_kernels, nn_kernels, gicp_kernels):
+        for name in mod.LAUNCHES:
+            stack.enter_context(mock.patch.object(mod, name,
+                                                  checked(mod, name)))
+    return stack
+
+
+def align_app_kernels(s_ds, t_ds):
+    """Phase 19's second part: each of the align app's methods on the
+    app's own clouds (at most CAPACITY voxels), from the identity guess,
+    through the kernels and through the checked plain route; the kernels
+    held to plain at every call along the plain route and the two poses
+    within the kernel-vs-plain bounds of phases 4 and 8."""
+    import torch
+
+    from toyslam_tpu_torch.apps import align
+
+    bounds = {"ICP": (ICP_TOL_M, ICP_TOL_RAD),
+              "GICP": (GICP_TOL_M, GICP_TOL_RAD)}
+    wants = {"ICP": {"nearest_neighbor"},
+             "GICP": {"nearest_neighbor", "neg_dist_bf16", "gicp_terms"}}
+    print(f"  kernels vs plain along the app's aligns (N "
+          f"{s_ds.capacity}, M {t_ds.capacity}, {int(s_ds.mask.sum())} and "
+          f"{int(t_ds.mask.sum())} valid points), from the identity:")
+    for method, run in align.aligners(s_ds, t_ds).items():
+        res = run(torch.eye(4))
+        calls = []
+        with checked_plain_route(calls):
+            plain = run(torch.eye(4))
+        tol_m, tol_rad = bounds.get(method, (PAIRS_TOL_M, PAIRS_TOL_RAD))
+        d_t, d_r = pose_diff(res.transform, plain.transform)
+        seen = {}
+        for name, rows, e, ok in calls:
+            n, worst, good, shapes = seen.get(name, (0, None, True, set()))
+            worst = e if worst is None else (
+                tuple(map(max, worst, e)) if isinstance(e, tuple)
+                else max(worst, e))
+            seen[name] = (n + 1, worst, good and ok, shapes | {rows})
+        per_kernel = "; ".join(
+            f"{k} {n} calls at rows {sorted(r)}, " + (
+                f"max err {w[0]:.3g} of the group's largest sum, {w[1]:.3g} "
+                f"of the terms' magnitudes (bound {TERMS_MAG_RTOL:.3g})"
+                if isinstance(w, tuple) else f"max abs err {w:.3g}")
+            + f", within bound {g}" for k, (n, w, g, r) in seen.items())
+        print(f"    {method}: poses {d_t:.3g} m, {d_r:.3g} rad apart "
+              f"(bounds {tol_m} m, {tol_rad} rad), converged "
+              f"{res.converged} and {plain.converged}; {per_kernel}")
+        check(res.converged and plain.converged,
+              f"align app kernels: {method} did not converge on both routes")
+        check(d_t <= tol_m and d_r <= tol_rad,
+              f"align app kernels: {method}'s kernel and plain routes "
+              "disagree")
+        check(wants.get(method, {"ndt_terms_gathered"}) <= set(seen),
+              f"align app kernels: {method} did not reach its kernels")
+        check(all(v[2] for v in seen.values()),
+              f"align app kernels: a kernel of {method} disagrees with its "
+              "plain version at the app's shapes")
+
+
+def align_app_phase(dev, a_xyzi, a_mask, a_gt):
+    """Phase 19: the align app on the align-65k pair. Returns the app's
+    launches by kernel, and its clouds on the card with NDT DIRECT7's
+    pose for phase 20."""
+    import torch
+
+    from toyslam_tpu_torch.apps import align
+    from toyslam_tpu_torch.core import pcd_io, pointcloud
+    from toyslam_tpu_torch.registration import ndt
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    for k, name in ((0, "target.pcd"), (1, "source.pcd")):
+        pcd_io.write_pcd(root / name, a_xyzi[k][a_mask[k]])
+    rc, stdout, app_s = run_module("toyslam_tpu_torch.apps.align",
+                                   root / "target.pcd", root / "source.pcd",
+                                   "--json")
+    check(rc == 0, f"the align app exited {rc}")
+    rep = json.loads(stdout.strip().splitlines()[-1])
+    print(f"phase 19 align app on the align-65k pair ({app_s:.1f} s, one "
+          f"process): {rep['voxels']} voxels at {align.LEAF} m, "
+          f"{rep['cut']} cut by the capacity; {rep['card']}")
+    pts = [pcd_io.read_pcd(root / n) for n in ("target.pcd", "source.pcd")]
+    cap = max(len(p) for p in pts)
+    t_ds, s_ds = (pointcloud.voxel_downsample(
+        pointcloud.from_numpy(p, capacity=cap, device=dev), align.LEAF,
+        min(align.CAPACITY, cap)) for p in pts)
+    a_rel = np.linalg.inv(a_gt[0]) @ a_gt[1]
+    truth_t, _ = pose_diff(a_rel, np.eye(4))
+    wants = {"ICP": ("nearest_neighbor",),
+             "GICP": ("nearest_neighbor", "neg_dist_bf16", "gicp_terms")}
+    app_launch = dict.fromkeys(NEW_PATH_KERNELS, 0)
+    for m in rep["methods"]:
+        T = torch.tensor(m["transform"], dtype=torch.float32)
+        direct = float(ndt.fitness_score(s_ds, t_ds, T))
+        e_t, e_r = pose_diff(T, a_rel)
+        print(f"  {m['method']}: {m['ms_per_align']:.3f} ms/align (median "
+              f"of 3 batches of {rep['reps']}: "
+              f"{[round(x, 3) for x in m['batch_ms_per_align']]}), fitness "
+              f"{m['fitness']:.6f} (direct call {direct:.6f}), converged "
+              f"{m['converged']}, vs ground truth {e_t:.4g} m, {e_r:.4g} rad "
+              f"(identity {truth_t:.4g} m); launches {m['launches']}")
+        check(m["converged"], f"align app: {m['method']} did not converge")
+        check(e_t < truth_t, f"align app: {m['method']} did not improve on "
+                             "its identity guess")
+        check(m["fitness"] == direct, f"align app: {m['method']}'s fitness "
+                                      "differs from fitness_score")
+        for name in wants.get(m["method"], ("ndt_terms_gathered",)):
+            check(m["launches"].get(name, 0) > 0,
+                  f"align app: {m['method']} never launched {name}")
+        for name, n in m["launches"].items():
+            app_launch[name] += n
+    align_app_kernels(s_ds, t_ds)
+
+    tmp.cleanup()
+    T = torch.tensor(rep["methods"][2]["transform"], dtype=torch.float32)
+    return app_launch, (s_ds, t_ds, T)
+
+
+def search_phase(dev, s_ds, t_ds, T):
+    """Phase 20: the NDT search helpers on the align app's clouds, on the
+    card, against the plain route and the CPU."""
+    import torch
+
+    from toyslam_tpu_torch.core import pointcloud
+    from toyslam_tpu_torch.ops import nn_kernels
+    from toyslam_tpu_torch.registration import ndt
+
+    nn_kernels.reset_launch_counts()
+    fit = ndt.fitness_score(s_ds, t_ds, T)
+    k4_calls = nn_kernels.LAUNCHES["nearest_neighbor"]
+    with mock.patch.object(nn_kernels, "nearest_neighbor",
+                           nn_kernels.nearest_neighbor_plain):
+        fit_plain = ndt.fitness_score(s_ds, t_ds, T)
+    t_cpu = pointcloud.PointCloud(t_ds.xyzi.double().cpu(), t_ds.mask.cpu())
+    s_cpu = pointcloud.PointCloud(s_ds.xyzi.double().cpu(), s_ds.mask.cpu())
+    t0 = time.perf_counter()
+    num = den = 0.0
+    for i in range(0, s_cpu.capacity, 2048):  # row chunks bound the memory
+        chunk = pointcloud.PointCloud(s_cpu.xyzi[i:i + 2048],
+                                      s_cpu.mask[i:i + 2048])
+        n = int(chunk.mask.sum())
+        if n:
+            num += float(ndt.fitness_score(chunk, t_cpu, T.double())) * n
+            den += n
+    fit64 = num / den
+    fit_ms = cuda_ms(lambda: ndt.fitness_score(s_ds, t_ds, T))
+    fit_rel = abs(float(fit) - fit64) / fit64
+    print(f"phase 20 search helpers at align-65k on the card: fitness_score "
+          f"{float(fit):.7f} through K4 ({k4_calls} launch, {fit_ms:.3f} ms "
+          f"a call), plain route equal: {torch.equal(fit, fit_plain)}; f64 "
+          f"on the CPU {fit64:.9f} ({time.perf_counter() - t0:.1f} s), "
+          f"relative {fit_rel:.3g} (bound {FIT64_RTOL})")
+    check(k4_calls == 1 and torch.equal(fit, fit_plain),
+          "fitness_score through K4 differs from its plain route")
+    check(fit_rel <= FIT64_RTOL, "fitness_score far from the f64 result")
+
+    amap = ndt.build_ndt_map(t_ds, ndt.NDTConfig(resolution=1.0))
+    cmap = ndt.NDTMap(*(x.cpu() for x in amap))
+    q = (s_ds.xyzi[:SEARCH_QUERIES, :3] @ T[:3, :3].T.to(dev)
+         + T[:3, 3].to(dev)).contiguous()
+    qc = q.cpu()
+    same_lookup = True
+    for method in ("DIRECT1", "DIRECT7", "DIRECT27"):
+        off = ndt._OFFSETS[method]
+        slot, found = ndt.lookup_neighbors(amap, q, 1.0, off)
+        cslot, cfound = ndt.lookup_neighbors(cmap, qc, 1.0, off)
+        same_lookup &= (torch.equal(found.cpu(), cfound)
+                        and torch.equal(slot.cpu(), cslot))
+    idx, d2, kfound = ndt.nearest_k_search(amap, q, 8)
+    cidx, cd2, ckfound = ndt.nearest_k_search(cmap, qc, 8)
+    ridx, rd2, rfound, rcount = ndt.radius_search(amap, q, 2.0, 16)
+    cridx, crd2, crfound, crcount = ndt.radius_search(cmap, qc, 2.0, 16)
+    # |q|^2 + |c|^2 of every (query, voxel), the scale of the bound.
+    scale = ((qc * qc).sum(1, keepdim=True)
+             + (cmap.mean3 * cmap.mean3).sum(0)[None])
+    k_scale = torch.take_along_dim(scale, cidx.long(), 1)
+    r_scale = torch.take_along_dim(scale, cridx.long(), 1)
+    k_rel = float(((d2.cpu() - cd2).abs() / k_scale).max())
+    both = rfound.cpu() & crfound
+    r_rel = float(torch.where(both, (rd2.cpu() - crd2).abs() / r_scale,
+                              0.0).max())
+    tol_row = 2 * SEARCH_D2_RTOL * scale.amax(1, keepdim=True)
+    sure = distinct(cd2, tol_row) & ckfound
+    k_sets = torch.equal(idx.cpu()[sure], cidx[sure])
+    # Counts may differ only where a distance lies within the bound of r^2.
+    full = ndt._centroid_sqdist(cmap, qc)
+    edge = ((full - 4.0).abs() <= SEARCH_D2_RTOL * scale).any(1)
+    count_ok = bool(((rcount.cpu() == crcount) | edge).all())
+    r_sure = distinct(crd2, tol_row) & both
+    r_sets = torch.equal(ridx.cpu()[r_sure], cridx[r_sure])
+    print(f"  lookup_neighbors (DIRECT1/7/27, {SEARCH_QUERIES} queries) "
+          f"equal to the CPU's: {same_lookup}; nearest_k_search k 8: "
+          f"squared distances vs the CPU's f32 max {k_rel:.3g} of |q|^2 + "
+          f"|c|^2 (bound {SEARCH_D2_RTOL:.3g}; max |q|^2 + |c|^2 "
+          f"{float(scale.max()):.1f} m^2), indices equal on the "
+          f"{int(sure.sum())} of {sure.numel()} entries with distinct "
+          f"distances: {k_sets}; radius_search r 2 m, 16 kept: max "
+          f"{r_rel:.3g}, counts equal off the r^2 edge: {count_ok} (mean "
+          f"count {float(crcount.double().mean()):.1f}, "
+          f"{int(edge.sum())} rows at the edge), indices equal where "
+          f"distinct: {r_sets}")
+    check(same_lookup, "lookup_neighbors on the card differs from the CPU")
+    check(k_rel <= SEARCH_D2_RTOL and r_rel <= SEARCH_D2_RTOL and k_sets
+          and r_sets and count_ok and torch.equal(kfound.cpu(), ckfound),
+          "the centroid searches on the card differ from the CPU's")
+
+
+def icp_slam_phase(dev):
+    """Phase 21: the icp_demo app at its defaults, then icp_slam on its
+    scenario through K4 and through the plain route. Returns K4's
+    launches in the kernel run."""
+    import torch
+
+    from toyslam_tpu_torch.apps import icp_demo
+    from toyslam_tpu_torch.ops import nn_kernels
+    from toyslam_tpu_torch.pipelines import icp_slam
+
+    tmp = tempfile.TemporaryDirectory()
+    rc, stdout, app_s = run_module("toyslam_tpu_torch.apps.icp_demo",
+                                   tmp.name)
+    rep = json.loads(stdout.strip().splitlines()[-1])
+    print(f"phase 21 icp_demo at its defaults ({app_s:.1f} s with the "
+          f"process start): exit {rc}, {rep}")
+    check(rc == 0 and rep["ate_rmse_m"] < 0.1, "icp_demo failed its gate")
+    tmp.cleanup()
+    xyzi, mask, gt, cap = icp_demo.scenario(10, 2000, 0, (0.12, 0.05, 0.0))
+    scans = torch.from_numpy(xyzi).to(dev)
+    masks = torch.from_numpy(mask).to(dev)
+    cfg = icp_slam.IcpSlamConfig(map_capacity=4 * cap, map_leaf=0.3)
+    nn_kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = icp_slam.icp_slam(scans, masks, cfg)
+    torch.cuda.synchronize()
+    slam_s = time.perf_counter() - t0
+    k4 = nn_kernels.LAUNCHES["nearest_neighbor"]
+    with mock.patch.object(nn_kernels, "nearest_neighbor",
+                           nn_kernels.nearest_neighbor_plain):
+        plain = icp_slam.icp_slam(scans, masks, cfg)
+    same = (torch.equal(out.poses, plain.poses)
+            and torch.equal(out.map_xyzi, plain.map_xyzi))
+    ate = float(np.sqrt(np.mean(np.sum(
+        (out.poses.double().numpy()[:, :3, 3] - gt[:, :3, 3]) ** 2, 1))))
+    print(f"  icp_slam in-process: {slam_s:.3f} s, K4 launches {k4}, ICP "
+          f"iterations (= host syncs) {out.iterations.tolist()}, ATE "
+          f"{ate:.5f} m; poses and map through K4 equal to the plain "
+          f"route's: {same}")
+    check(k4 == int(out.iterations.sum()) and k4 > 0,
+          "icp_slam did not launch K4 once an ICP iteration")
+    check(same, "icp_slam through K4 differs from the plain route")
+    return {"nearest_neighbor": k4}
+
+
+def imu_log(num_scans, seed=0):
+    """A numpy-seeded IMU log of the generator's motion in the frame of
+    scan 0: 3 m/s along the heading turning at 0.04 rad/s (0.3 m and
+    0.004 rad a scan at 10 Hz), level: specific force [0, v w, g] and
+    rate [0, 0, w] in the body frame, with FusionConfig's noise (0.03,
+    0.002). Returns (acc, gyro, dt) f64."""
+    T = num_scans * IMU_PER_SCAN
+    rng = np.random.default_rng(seed)
+    v, w = 0.3 / SCAN_PERIOD_S, 0.004 / SCAN_PERIOD_S
+    acc = np.tile([0.0, v * w, 9.81], (T, 1)) + 0.03 * rng.normal(
+        size=(T, 3))
+    gyro = np.tile([0.0, 0.0, w], (T, 1)) + 0.002 * rng.normal(size=(T, 3))
+    return acc, gyro, np.full(T, SCAN_PERIOD_S / IMU_PER_SCAN)
+
+
+def fusion_phase(dev, scans, scan_mask, odo_out):
+    """Phase 22: ndt_eskf_fusion over the odometry scans. Returns the
+    kernels' launches in its run."""
+    import torch
+
+    from toyslam_tpu_torch.ops.launches import launches, reset_launches
+    from toyslam_tpu_torch.estimators import eskf
+    from toyslam_tpu_torch.pipelines import fusion
+
+    S = scans.shape[0]
+    acc, gyro, dt = imu_log(S)
+    args = [torch.from_numpy(a).to(dev, torch.float32)
+            for a in (acc, gyro, dt)]
+    cfg = fusion.FusionConfig(imu_per_scan=IMU_PER_SCAN)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fusion.ndt_eskf_fusion(scans, scan_mask, *args, cfg)
+    torch.cuda.synchronize()
+    fus_s = time.perf_counter() - t0
+    fus_launch = {k: v for k, v in launches().items()
+                  if k in NEW_PATH_KERNELS}
+    same = torch.equal(out.poses, odo_out.poses)
+    T = acc.shape[0]
+    ticks = (np.arange(S) + 1) * IMU_PER_SCAN - 1
+    meas = np.zeros((T, 3))
+    meas[ticks] = out.poses.double().numpy()[:, :3, 3]
+    valid = np.zeros(T, bool)
+    valid[ticks] = out.converged.numpy()
+    log64 = eskf.ESKFLog(*(torch.from_numpy(a) for a in
+                           (dt, acc, gyro, meas, valid)))
+    _, ref = eskf.eskf_run(log64, None, cfg.eskf)
+    d_p = float((out.fused_p.double().cpu() - ref["p"]).abs().max())
+    log = eskf.ESKFLog(args[2], args[0], args[1],
+                       torch.from_numpy(meas).to(dev, torch.float32),
+                       torch.from_numpy(valid).to(dev))
+    _, syncs = count_syncs(lambda: eskf.eskf_run(log, None, cfg.eskf))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eskf.eskf_run(log, None, cfg.eskf)
+    torch.cuda.synchronize()
+    tick_ms = 1e3 * (time.perf_counter() - t0) / T
+    short = eskf.ESKFLog(*(x[:IMU_PER_SCAN] for x in log))
+    _, busy, n_ops, _ = device_profile(
+        lambda: eskf.eskf_run(short, None, cfg.eskf))
+    last_err = float(np.linalg.norm(out.fused_p[-1].double().cpu().numpy()
+                                    - meas[ticks[-1]]))
+    print(f"phase 22 ndt_eskf_fusion over the {S} odometry scans, "
+          f"{IMU_PER_SCAN} IMU ticks a scan ({T} ticks): {fus_s:.2f} s; "
+          f"launches {fus_launch}; poses equal to phase 4's odometry: "
+          f"{same}; fused track vs the f64 ESKF on the CPU max {d_p:.3g} m "
+          f"(bound {FUSED_TOL_M} m); last fused position {last_err:.3g} m "
+          f"from the last fix")
+    print(f"  the ESKF alone on the card: {tick_ms:.4f} ms a tick (host "
+          f"clock over {T} ticks); {n_ops / IMU_PER_SCAN:.1f} device "
+          f"operations a tick ({busy / IMU_PER_SCAN:.4f} ms device busy; "
+          f"torch.profiler over {IMU_PER_SCAN} ticks); synchronising calls "
+          f"in eskf_run by line: {syncs}")
+    check(bool(out.converged.all()), "a fusion align did not converge")
+    check(fus_launch["ndt_gather_repack"] > 0
+          and fus_launch["ndt_terms_packed"] > 0,
+          "K2 or K3 was never launched in the fusion path")
+    check(same, "fusion poses differ from phase 4's odometry")
+    check(d_p <= FUSED_TOL_M, "the fused track on the card is far from the "
+                              "f64 ESKF")
+    check(not syncs, "eskf_run made a host sync")
+    return fus_launch
+
+
+def uwb_phase():
+    """Phase 23: uwb_demo at its defaults on the card."""
+    tmp = tempfile.TemporaryDirectory()
+    rc, stdout, app_s = run_module("toyslam_tpu_torch.apps.uwb_demo",
+                                   tmp.name)
+    tri = float(re.search(r"trilateration: .*?ATE ([\d.]+) m",
+                          stdout).group(1))
+    fused = float(re.search(r"ESKF fused .*?ATE ([\d.]+) m",
+                            stdout).group(1))
+    lines = [ln for ln in stdout.splitlines() if "ATE" in ln]
+    print(f"phase 23 uwb_demo at its defaults ({app_s:.1f} s with the "
+          f"process start): exit {rc}")
+    for ln in lines:
+        print(f"  {ln}")
+    check(rc == 0 and fused < tri, "uwb_demo failed its gate or the fused "
+                                   "ATE is not below the trilateration's")
+    tmp.cleanup()
 
 
 def main() -> int:
@@ -1452,6 +1962,14 @@ def main() -> int:
 
     map_launch = mapping_path(scans, scan_mask, xyzi, mask, cfg, out,
                               a_xyzi, a_mask)
+    app_launch, search_args = align_app_phase(dev, a_xyzi, a_mask, a_gt)
+    search_phase(dev, *search_args)
+    new_paths = {
+        "align_app_launches": app_launch,
+        "icp_slam_launches": icp_slam_phase(dev),
+        "fusion_launches": fusion_phase(dev, scans, scan_mask, out),
+    }
+    uwb_phase()
 
     print(card)
     kernels = [{
@@ -1469,6 +1987,9 @@ def main() -> int:
     for name in ndt_names:  # the mapping path's own run
         kernels[list(KERNELS).index(name)]["mapping_launches"] = (
             map_launch[name])
+    for key, counts in new_paths.items():  # phases 19, 21 and 22
+        for name in NEW_PATH_KERNELS:
+            kernels[list(KERNELS).index(name)][key] = counts.get(name, 0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,6 +25,14 @@ several waves of them. A GICP align on the card within
 covariance neighbour; the CPU and the card break top-k ties differently).
 Mapping on the card: poses equal to odometry's bit for bit, and a
 checkpoint that keeps devices and dtypes and resumes bit-identically.
+``fitness_score`` through K4 equal to its plain route bit for bit;
+``convert.eskf_state`` puts the state on the card by default;
+``eskf_run`` and ``solve_positions_batch`` make no host synchronisation
+(PyTorch's sync debug mode set to raise) and land near the same f64 runs
+on the CPU: the ESKF's p, v, q within 1e-4 over 400 ticks (CPU f32
+against f64 differs by 3.2e-7; the card's f32 may round otherwise, by FMA
+contraction), the fixes within 1e-3 m (CPU f32 against f64: 1.4e-4 m, the
+vertical DOP of ~12 of the anchor ring magnifying f32 rounding).
 D1: ``highest`` bit-identical; the split modes within 2^-16 of the largest
 |s.t| (the same exact bf16 products, summed by the tensor core in place of
 the plain version's f32 adds; a bf16-level sum would miss by ~2^-9). D2
@@ -32,13 +40,17 @@ bit-identical (the same tree of f32 adds), one device operation a call.
 All at ragged shapes: no shape gate.
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from toyslam_tpu_torch import convert  # noqa: E402
 from toyslam_tpu_torch.core import pointcloud  # noqa: E402
 from toyslam_tpu_torch.diag import gicp_call_ops  # noqa: E402
+from toyslam_tpu_torch.estimators import eskf, trilateration  # noqa: E402
 from toyslam_tpu_torch.ops import gather_kernels, gicp_kernels  # noqa: E402
 from toyslam_tpu_torch.ops import nn_kernels, ranking_kernels  # noqa: E402
 from toyslam_tpu_torch.ops import ndt_kernels  # noqa: E402
@@ -611,3 +623,86 @@ def test_checkpoint_round_trip_on_card(cuda, mapping_scans, tmp_path):
         assert torch.equal(out[0], full.odometry.poses[i])
     assert torch.equal(back.map_cloud.xyzi, full.map_xyzi)
     assert torch.equal(back.map_cloud.mask, full.map_mask)
+
+
+def _no_host_sync(fn):
+    """fn() with PyTorch's sync debug mode raising on any synchronising
+    call."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out
+
+
+def test_fitness_score_k4_equals_plain_route_on_card(cuda, clouds):
+    tgt, src = (pointcloud.PointCloud(*(t.to(cuda) for t in c))
+                for c in clouds)
+    T = torch.eye(4)
+    T[0, 3], T[1, 3] = 0.3, -0.05
+    nn_kernels.reset_launch_counts()
+    got = ndt.fitness_score(src, tgt, T)
+    assert nn_kernels.LAUNCHES["nearest_neighbor"] == 1
+    with mock.patch.object(nn_kernels, "nearest_neighbor",
+                           nn_kernels.nearest_neighbor_plain):
+        want = ndt.fitness_score(src, tgt, T)
+    assert got.is_cuda and float(got) > 0
+    assert torch.equal(got, want)
+    cut = ndt.fitness_score(src, tgt, T, max_range=0.2)
+    assert float(cut) < float(got)
+
+
+def _eskf_log(device, dtype, T=400):
+    rng = np.random.default_rng(6)
+    dt = np.full(T, 0.005)
+    dt[[50, 200]] = 0.0
+    acc = np.tile([0.05, 0.02, 9.81], (T, 1)) + 0.03 * rng.normal(size=(T, 3))
+    gyro = np.tile([0.0, 0.0, 0.05], (T, 1)) + 0.002 * rng.normal(
+        size=(T, 3))
+    meas = 0.01 * rng.normal(size=(T, 3))
+    valid = np.zeros(T, bool)
+    valid[19::20] = True
+    return eskf.ESKFLog(*(torch.from_numpy(a).to(device, dtype)
+                          if a.dtype != bool else torch.from_numpy(a).to(
+                              device) for a in (dt, acc, gyro, meas, valid)))
+
+
+def test_eskf_run_no_host_sync_on_card(cuda):
+    log = _eskf_log(cuda, torch.float32)
+    params = eskf.ESKFParams(acc_noise=0.03, meas_noise=0.01)
+    _, traj = _no_host_sync(lambda: eskf.eskf_run(log, None, params))
+    _, ref = eskf.eskf_run(_eskf_log("cpu", torch.float64), None, params)
+    assert traj["p"].is_cuda and traj["p"].shape == (400, 3)
+    for k in ("p", "v", "q"):
+        assert float((traj[k].double().cpu() - ref[k]).abs().max()) < 1e-4
+
+
+def test_convert_eskf_state_defaults_to_card(cuda):
+    fields = eskf.init_state(torch.float64, device="cpu")._asdict()
+    state = convert.eskf_state(fields)
+    assert all(x.is_cuda and x.dtype == torch.float64 for x in state)
+    assert all(torch.equal(x.cpu(), fields[k])
+               for k, x in state._asdict().items())
+
+
+def test_solve_positions_batch_no_host_sync_on_card(cuda):
+    rng = np.random.default_rng(9)
+    theta = np.arange(8) * 2 * np.pi / 8
+    anchors = np.stack([50 * np.cos(theta), 50 * np.sin(theta),
+                        3.0 * (np.arange(8) % 4)], -1)
+    pos = np.stack([30 * np.cos(0.01 * np.arange(600)),
+                    30 * np.sin(0.01 * np.arange(600)), np.ones(600)], -1)
+    ranges = np.linalg.norm(pos[:, None] - anchors[None], axis=-1)
+    ranges += 0.3 * rng.normal(size=ranges.shape)
+    cfg = trilateration.TrilaterationConfig(huber_delta=0.5)
+    args = [torch.from_numpy(a) for a in (ranges, anchors,
+                                          np.array([1.0, 0.0, 0.5]))]
+    on_card = [a.to(cuda, torch.float32) for a in args]
+    p, rms = _no_host_sync(
+        lambda: trilateration.solve_positions_batch(*on_card, config=cfg))
+    p64, _ = trilateration.solve_positions_batch(*args, config=cfg)
+    assert p.is_cuda and p.shape == (600, 3) and bool(torch.isfinite(rms).all())
+    assert float((p.double().cpu() - p64).abs().max()) < 1e-3

@@ -158,8 +158,9 @@ def test_odometry_step_with_coarse_stage_sums_both_aligns(scans):
 
 
 def test_port_imports_without_jax():
-    """Every module of the port imports, and an NDT, an ICP and a GICP align
-    and the mapping app with its checkpoints run, with JAX made
+    """Every module of the port imports (the apps among them, without
+    running), and an NDT, an ICP and a GICP align, the mapping app with its
+    checkpoints, ``icp_slam`` and ``ndt_eskf_fusion`` run, with JAX made
     unimportable."""
     code = """
 import sys
@@ -193,6 +194,23 @@ with tempfile.TemporaryDirectory() as d:
             "--map-capacity", "2048", "--stream", "--checkpoint-every", "1"]
     assert mapping_demo.main(args) == 0
     assert (Path(d) / "out" / "mapping_state.npz").exists()
+from toyslam_tpu_torch.pipelines import fusion, icp_slam
+scans = torch.from_numpy(np.stack([np.c_[pts + [0.1 * k, 0.0, 0.0],
+                                         np.zeros(len(pts))]
+                                   for k in range(3)]))
+smask = torch.ones(scans.shape[:2], dtype=torch.bool)
+slam = icp_slam.icp_slam(scans[:, :500], smask[:, :500],
+                         icp_slam.IcpSlamConfig(map_capacity=1024))
+assert slam.iterations[1:].min() > 0 and int(slam.map_mask.sum()) > 0
+imu = torch.zeros((60, 3), dtype=torch.float64)
+acc = imu + torch.tensor([0.0, 0.0, 9.81], dtype=torch.float64)
+cfg = fusion.FusionConfig(odometry=fusion.odo.OdometryConfig(
+    scan_leaf=0.5, work_capacity=2048))
+fused = fusion.ndt_eskf_fusion(scans, smask, acc, imu,
+                               torch.full((60,), 0.01, dtype=torch.float64),
+                               cfg)
+assert fused.converged.all() and fused.fused_p.shape == (60, 3)
+assert torch.isfinite(fused.fused_p).all()
 assert not any(k == "jax" or k.startswith(("jax.", "toyslam_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("ok")

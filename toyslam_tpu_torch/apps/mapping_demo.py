@@ -102,14 +102,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from toyslam_tpu_torch import config as cfgmod
+    from toyslam_tpu_torch.apps.common import device
     from toyslam_tpu_torch.core import pcd_io
     from toyslam_tpu_torch.pipelines import odometry as odo
     from toyslam_tpu_torch.utils import evalio
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; pass --device cpu to run on "
-                           "the host")
-    dev = torch.device(args.device)
+    dev = device(args.device)
     times, xyzi, mask = load_scans(args.source, args.capacity)
     print(f"loaded {len(times)} scans (capacity {args.capacity})")
     if args.config:

@@ -16,6 +16,9 @@ import numpy as np
 import torch
 
 from toyslam_tpu_torch.core.pointcloud import PointCloud
+from toyslam_tpu_torch.estimators.eskf import ESKFParams, ESKFState
+from toyslam_tpu_torch.pipelines.fusion import FusionConfig
+from toyslam_tpu_torch.pipelines.icp_slam import IcpSlamConfig
 from toyslam_tpu_torch.pipelines.odometry import (MappingState,
                                                   OdometryConfig,
                                                   OdometryState)
@@ -58,19 +61,44 @@ def gicp_config(fields: Mapping) -> GICPConfig:
     return _shared_fields(GICPConfig, fields)
 
 
-def odometry_config(fields: Mapping) -> OdometryConfig:
-    out = {k: fields[k] for k in OdometryConfig._fields if k in fields}
-    if "ndt" in out:
-        sub = out["ndt"]
-        out["ndt"] = ndt_config(sub if isinstance(sub, Mapping)
-                                else sub._asdict())
-    return OdometryConfig(**out)
-
-
 def _fields(x) -> Mapping:
-    """A Mapping as it is; a NamedTuple (the JAX package's states and
-    clouds) as its ``_asdict()``."""
+    """A Mapping as it is; a NamedTuple (the JAX package's states, clouds
+    and nested configs) as its ``_asdict()``."""
     return x if isinstance(x, Mapping) else x._asdict()
+
+
+def _nested(cls, fields: Mapping, **subs):
+    """``cls`` from the fields it has, each nested config in ``subs``
+    (name -> converter) converted from its own fields."""
+    out = {k: fields[k] for k in cls._fields if k in fields}
+    for name, conv in subs.items():
+        if name in out:
+            out[name] = conv(_fields(out[name]))
+    return cls(**out)
+
+
+def odometry_config(fields: Mapping) -> OdometryConfig:
+    return _nested(OdometryConfig, fields, ndt=ndt_config)
+
+
+def icp_slam_config(fields: Mapping) -> IcpSlamConfig:
+    return _nested(IcpSlamConfig, fields, icp=icp_config)
+
+
+def eskf_params(fields: Mapping) -> ESKFParams:
+    return _shared_fields(ESKFParams, fields)
+
+
+def fusion_config(fields: Mapping) -> FusionConfig:
+    return _nested(FusionConfig, fields, odometry=odometry_config,
+                   eskf=eskf_params)
+
+
+def eskf_state(fields, device="cuda") -> ESKFState:
+    """The fields of the JAX ``ESKFState`` -> the port's, on ``device``."""
+    fields = _fields(fields)
+    return ESKFState(**{k: _tensor(fields[k], device)
+                        for k in ESKFState._fields})
 
 
 def odometry_state(fields, device="cuda") -> OdometryState:

@@ -4,8 +4,9 @@
 NDT's 6-vector pose chart is ``p = [tx ty tz roll pitch yaw]`` with
 ``R = Rx(roll) @ Ry(pitch) @ Rz(yaw)``; ``rot_to_euler_xyz`` follows
 Eigen's ``eulerAngles(0, 1, 2)`` branch (first angle in ``[0, pi]``).
-``rot_to_quat`` feeds the trajectory writers of ``utils/evalio``.
-Every function is dtype-generic and works on any device.
+``rot_to_quat`` feeds the trajectory writers of ``utils/evalio``; the
+Hamilton ``[w, x, y, z]`` quaternion helpers serve the ESKF and the
+simulators. Every function is dtype-generic and works on any device.
 """
 
 from __future__ import annotations
@@ -129,3 +130,121 @@ def rot_to_quat(R):
     q = torch.take_along_dim(cand, idx[..., None, None].expand(
         idx.shape + (1, 4)), dim=-2)[..., 0, :]
     return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def so3_log(R):
+    """Log map; R: [..., 3, 3] -> [..., 3]. Where sin(theta) < 1e-7 (near 0
+    and near pi) the scale is the Taylor term 1/2 + theta^2/12, as in the
+    JAX package."""
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    theta = torch.arccos(torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0))
+    w = torch.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0],
+                     R[..., 1, 0] - R[..., 0, 1]], -1)
+    sin_t = torch.sin(theta)
+    small = torch.abs(sin_t) < 1e-7
+    scale = torch.where(small, 0.5 + theta**2 / 12.0,
+                        theta / torch.where(small, torch.ones_like(sin_t),
+                                            2.0 * sin_t))
+    return w * scale[..., None]
+
+
+def transform_inverse(T):
+    """Inverse of [..., 4, 4] rigid transforms."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    return make_transform(Rt, -(Rt @ T[..., :3, 3, None])[..., 0])
+
+
+def transform_points(T, pts):
+    """Apply [..., 4, 4] to points [..., N, 3]; a fourth column (intensity)
+    is carried through."""
+    out = pts[..., :3] @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
+    if pts.shape[-1] == 4:
+        out = torch.cat([out, pts[..., 3:4]], -1)
+    return out
+
+
+# Quaternions: Hamilton convention, [w, x, y, z].
+
+
+def quat_identity(dtype=torch.float32, device="cuda"):
+    """[1, 0, 0, 0], made on ``device`` (no host copy)."""
+    return torch.eye(4, dtype=dtype, device=device)[0]
+
+
+def quat_multiply(q, r):
+    w1, x1, y1, z1 = q.unbind(-1)
+    w2, x2, y2, z2 = r.unbind(-1)
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ], -1)
+
+
+def quat_conjugate(q):
+    return torch.cat([q[..., :1], -q[..., 1:]], -1)
+
+
+def quat_normalize(q):
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def quat_to_rot(q):
+    """Rotation [..., 3, 3] of (not necessarily unit) quaternions."""
+    w, x, y, z = q.unbind(-1)
+    s = 2.0 / (w * w + x * x + y * y + z * z)
+    wx, wy, wz = s * w * x, s * w * y, s * w * z
+    xx, xy, xz = s * x * x, s * x * y, s * x * z
+    yy, yz, zz = s * y * y, s * y * z, s * z * z
+    return torch.stack([
+        torch.stack([1.0 - (yy + zz), xy - wz, xz + wy], -1),
+        torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], -1),
+        torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], -1),
+    ], -2)
+
+
+def quat_boxplus(q, dtheta):
+    """q [+] dtheta with the small-angle right-multiplied delta quaternion
+    dq = [1, dtheta / 2], renormalised."""
+    half = 0.5 * dtheta
+    dq = torch.cat([torch.ones_like(half[..., :1]), half], -1)
+    return quat_normalize(quat_multiply(q, dq))
+
+
+def quat_rotate(q, v):
+    """Rotate vectors [..., 3] by quaternions [..., 4]."""
+    return (quat_to_rot(q) @ v[..., None])[..., 0]
+
+
+def quat_from_axis_angle(axis, angle):
+    axis = axis / torch.linalg.norm(axis, dim=-1, keepdim=True)
+    half = 0.5 * angle
+    return torch.cat([torch.cos(half)[..., None],
+                      torch.sin(half)[..., None] * axis], -1)
+
+
+def quat_slerp(q0, q1, t):
+    """Spherical interpolation along the shorter arc; below sin(theta) 1e-6
+    it is linear."""
+    d = (q0 * q1).sum(-1, keepdim=True)
+    q1 = torch.where(d < 0, -q1, q1)
+    theta = torch.arccos(torch.clamp(d.abs(), -1.0, 1.0))
+    sin_t = torch.sin(theta)
+    small = sin_t < 1e-6
+    safe = torch.where(small, torch.ones_like(sin_t), sin_t)
+    w0 = torch.where(small, 1.0 - t, torch.sin((1.0 - t) * theta) / safe)
+    w1 = torch.where(small, t, torch.sin(t * theta) / safe)
+    return quat_normalize(w0 * q0 + w1 * q1)
+
+
+def inv3(M):
+    """Inverse of 3x3 matrices ``[..., 3, 3]`` by the adjugate: the columns
+    are the cross products of the rows over the determinant. Unlike
+    ``torch.linalg.inv`` it never checks for singularity on the host, so
+    it adds no device synchronisation (a singular matrix gives inf/NaN)."""
+    r0, r1, r2 = M.unbind(-2)
+    adj = torch.stack([torch.linalg.cross(r1, r2), torch.linalg.cross(r2, r0),
+                       torch.linalg.cross(r0, r1)], -1)
+    det = (r0 * adj[..., :, 0]).sum(-1)
+    return adj / det[..., None, None]

@@ -26,8 +26,14 @@ counts them). Voxel gathers for the frozen line search stay on the device.
 
 Deliberate differences from the reference are the JAX package's: KDTREE
 search dropped, Hessian on every evaluation, the float-path ``h_ang`` sign
-bug fixed. Coarse search helpers (``lookup_neighbors``,
-``nearest_k_search``, ``radius_search``, ``fitness_score``) are not ported.
+bug fixed.
+
+The coarse search helpers: ``lookup_neighbors`` (binary search over the
+sorted voxel ids), ``nearest_k_search`` and ``radius_search`` (one full
+f32 ``[Q, V]`` centroid-distance product, ``torch.matmul`` with TF32 off as
+JAX's ``HIGHEST``, and ``torch.topk``), ``fitness_score`` (PCL's
+``getFitnessScore`` through K4, ``ops/nn_kernels.nearest_neighbor``) and
+``sample_display_cloud``.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ import torch
 
 from toyslam_tpu_torch.core import se3
 from toyslam_tpu_torch.core.pointcloud import PointCloud, voxel_grid
-from toyslam_tpu_torch.ops import ndt_kernels
+from toyslam_tpu_torch.ops import ndt_kernels, nn_kernels
 from toyslam_tpu_torch.ops.eigh3 import eigh3_soa
 from toyslam_tpu_torch.ops.segment import (INT_MAX, run_bookkeeping,
                                            seg_broadcast, seg_reduce)
@@ -274,6 +280,61 @@ _OFFSETS = {
         (i, j, k) for i in (0, 1, -1) for j in (0, 1, -1) for k in (0, 1, -1)
     ],
 }
+
+
+def lookup_neighbors(ndt_map: NDTMap, query_xyz, resolution, offsets):
+    """Neighbour voxel slots of each query point, ``(slot [N, K] int32,
+    found [N, K] bool)`` (``getNeighborhoodAtPoint{,7,1}``,
+    ``voxel_grid_covariance_omp_impl.hpp:372-442``): a debug and parity
+    API; the align reads rows from ``hash_table``."""
+    ijk = torch.floor(query_xyz * (1.0 / resolution)).to(torch.int32) \
+        - ndt_map.min_b
+    off = torch.tensor(offsets, dtype=torch.int32, device=query_xyz.device)
+    nijk = ijk[:, None, :] + off[None, :, :]  # [N, K, 3]
+    in_bounds = ((nijk >= 0) & (nijk < ndt_map.div)).all(-1)
+    nvid = (nijk * ndt_map.div_mul).sum(-1, dtype=torch.int32)
+    ok = in_bounds & (nvid >= 0)
+    slot = torch.searchsorted(ndt_map.unique_ids, nvid).clamp(
+        max=ndt_map.unique_ids.shape[0] - 1)
+    found = ok & (ndt_map.vid_of_slot[slot] == nvid)
+    return slot.to(torch.int32), found
+
+
+def _centroid_sqdist(ndt_map: NDTMap, query_xyz):
+    """[Q, V] squared distances from the queries to the voxel means,
+    ``|q|^2 + |c|^2 - 2 q.c`` clamped at 0; invalid slots get the dtype's
+    largest value so that they rank last."""
+    mu = ndt_map.mean3  # [3, V]
+    qn = (query_xyz * query_xyz).sum(-1, keepdim=True)
+    cn = (mu * mu).sum(0)
+    d2 = (qn + cn[None, :] - 2.0 * (query_xyz @ mu)).clamp(min=0.0)
+    return torch.where(ndt_map.valid[None, :], d2, torch.finfo(d2.dtype).max)
+
+
+def nearest_k_search(ndt_map: NDTMap, query_xyz, k: int):
+    """The k nearest valid voxels by centroid distance
+    (``VoxelGridCovariance::nearestKSearch``): ``(idx [Q, k] int32 slots,
+    sqdist [Q, k], found [Q, k])``; found is False only where the map holds
+    fewer than k valid voxels. Ties rank in ``torch.topk``'s order."""
+    neg, idx = torch.topk(-_centroid_sqdist(ndt_map, query_xyz), k)
+    found = ndt_map.valid[idx]
+    return idx.to(torch.int32), torch.where(found, -neg, 0.0), found
+
+
+def radius_search(ndt_map: NDTMap, query_xyz, radius, max_nn: int):
+    """Valid voxels with centroid within ``radius``, nearest first
+    (``VoxelGridCovariance::radiusSearch``), at a fixed shape: ``(idx,
+    sqdist, found)`` of the up to ``max_nn`` nearest, each ``[Q, max_nn]``,
+    and the total in-radius count ``[Q]`` int32, so that a caller sees
+    truncation."""
+    d2 = _centroid_sqdist(ndt_map, query_xyz)
+    # radius^2 rounded in the distances' dtype, as JAX squares it there
+    # (a host scalar: no device copy).
+    within = d2 <= (torch.tensor(radius, dtype=d2.dtype) ** 2).item()
+    count = within.sum(-1).to(torch.int32)
+    neg, idx = torch.topk(-d2, max_nn)
+    found = torch.take_along_dim(within, idx, dim=-1)
+    return (idx.to(torch.int32), torch.where(found, -neg, 0.0), found, count)
 
 
 def _angle_tables(p):
@@ -618,3 +679,66 @@ def ndt_align(ndt_map: NDTMap, source: PointCloud, guess=None,
         gathers=gathers,
         host_syncs=ev.syncs,
     )
+
+
+def fitness_score(source: PointCloud, target: PointCloud, transform,
+                  max_range: float = math.inf):
+    """Mean squared nearest-neighbour distance of the transformed source
+    points in the target (``pcl::Registration::getFitnessScore``), over the
+    valid source points within ``max_range``; a 0-d tensor on the clouds'
+    device. The nearest neighbour is K4's: ``partial + |s|^2`` is the
+    squared distance, clamped at 0, and invalid target points carry the
+    1e30 ``|t|^2`` sentinel."""
+    xyz = source.xyzi[:, :3]
+    T = torch.as_tensor(transform).to(xyz.device, xyz.dtype,
+                                      non_blocking=True)
+    src = (xyz @ T[:3, :3].T + T[:3, 3]).contiguous()
+    tgt_t, tsq = nn_kernels.target_operands(target.xyzi[:, :3], target.mask,
+                                            1.0e30)
+    part, _ = nn_kernels.nearest_neighbor(src, tgt_t, tsq)
+    dists = (part + (src * src).sum(1)).clamp(min=0.0)
+    use = source.mask & (dists <= max_range * max_range)
+    cnt = use.sum().to(xyz.dtype).clamp(min=1.0)
+    return torch.where(use, dists, 0.0).sum() / cnt
+
+
+def display_cloud_from_normals(ndt_map: NDTMap, z):
+    """Points ``mean + L z`` of each voxel Gaussian (L the closed-form
+    Cholesky factor of the covariance, the inverse of ``icov``) from
+    standard normals ``z [V, P, 3]``: ``(xyz [V*P, 3], mask [V*P])``."""
+    V, P = z.shape[:2]
+    xx, xy, xz, yy, yz, zz = ndt_map.icov6
+    A = yy * zz - yz * yz
+    B = -(xy * zz - yz * xz)
+    C = xy * yz - yy * xz
+    det = xx * A + xy * B + xz * C
+    safe = torch.where(det.abs() > 1e-20, det, torch.ones_like(det))
+    c00, c01, c02 = A / safe, B / safe, C / safe
+    c11 = (xx * zz - xz * xz) / safe
+    c12 = -(xx * yz - xy * xz) / safe
+    c22 = (xx * yy - xy * xy) / safe
+    l00 = c00.clamp(min=1e-12).sqrt()
+    l10 = c01 / l00
+    l20 = c02 / l00
+    l11 = (c11 - l10 * l10).clamp(min=1e-12).sqrt()
+    l21 = (c12 - l20 * l10) / l11
+    l22 = (c22 - l20 * l20 - l21 * l21).clamp(min=1e-12).sqrt()
+    sx = l00[:, None] * z[..., 0]
+    sy = l10[:, None] * z[..., 0] + l11[:, None] * z[..., 1]
+    sz = (l20[:, None] * z[..., 0] + l21[:, None] * z[..., 1]
+          + l22[:, None] * z[..., 2])
+    pts = ndt_map.mean3.T[:, None, :] + torch.stack([sx, sy, sz], -1)
+    mask = ndt_map.valid[:, None].expand(V, P)
+    return pts.reshape(-1, 3), mask.reshape(-1)
+
+
+def sample_display_cloud(ndt_map: NDTMap, generator: torch.Generator,
+                         points_per_voxel: int = 100):
+    """Gaussian samples around each voxel mean for visualisation
+    (``VoxelGridCovariance::getDisplayCloud``,
+    ``voxel_grid_covariance_omp_impl.hpp:446-483``): ``(xyz [V*P, 3],
+    mask [V*P])``. ``generator`` lives on the map's device."""
+    z = torch.randn((ndt_map.valid.shape[0], points_per_voxel, 3),
+                    generator=generator, dtype=ndt_map.mean3.dtype,
+                    device=ndt_map.mean3.device)
+    return display_cloud_from_normals(ndt_map, z)

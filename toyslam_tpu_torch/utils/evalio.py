@@ -1,9 +1,9 @@
-"""Trajectory output and evaluation (the writers, readers and metrics of
-``toyslam_tpu/utils/evalio.py`` that the mapping app needs).
+"""Trajectory output and evaluation (port of ``toyslam_tpu/utils/evalio.py``).
 
 - the EvaPos CSV schema (``Time, PosXYZ, QuatWXYZ, VelXYZ``, Time in
-  nanoseconds) and TUM text (``t x y z qx qy qz qw``);
-- ATE (optionally Umeyama-aligned) and error statistics;
+  nanoseconds) and TUM text (``t x y z qx qy qz qw``), written and read;
+- ATE (optionally Umeyama-aligned), RPE and error statistics, and the
+  EvaPos "Baseline vs Proposed" comparison of two solutions;
 - per-scan JSONL metrics.
 
 Host-side numpy; quaternions come from the port's ``se3.rot_to_quat`` in
@@ -12,6 +12,7 @@ the poses' dtype, as the JAX module computes them in ``jnp``.
 
 from __future__ import annotations
 
+import csv
 import json
 from pathlib import Path
 from typing import NamedTuple
@@ -63,6 +64,17 @@ def write_evapos_csv(path: str | Path, traj: Trajectory) -> None:
             row = [t_ns] + [f"{v:.5f}" for v in (*traj.pos[i], *traj.quat[i],
                                                  *traj.vel[i])]
             f.write(",".join(str(v) for v in row) + ",\n")
+
+
+def read_evapos_csv(path: str | Path) -> Trajectory:
+    """Read an EvaPos-schema CSV; times in seconds from the first row's."""
+    cols = ("Time", "PosX", "PosY", "PosZ", "QuatW", "QuatX", "QuatY",
+            "QuatZ", "VelX", "VelY", "VelZ")
+    with open(path) as f:
+        a = np.asarray([[float(r[c]) for c in cols]
+                        for r in csv.DictReader(f)])
+    return Trajectory((a[:, 0] - a[0, 0]) / 1e9, a[:, 1:4], a[:, 4:8],
+                      a[:, 8:11])
 
 
 def write_tum(path: str | Path, times, transforms) -> None:
@@ -120,6 +132,23 @@ def ate(est_pos, gt_pos, align: bool = True):
     return float(np.sqrt(np.mean(err**2))), err
 
 
+def rpe(est_T, gt_T, delta: int = 1):
+    """Relative pose error over a fixed frame delta: (translation RMSE,
+    rotation RMSE in rad); est/gt [T, 4, 4]."""
+    est = np.asarray(est_T, np.float64)
+    gt = np.asarray(gt_T, np.float64)
+    errs_t, errs_r = [], []
+    for i in range(len(est) - delta):
+        d_est = np.linalg.inv(est[i]) @ est[i + delta]
+        d_gt = np.linalg.inv(gt[i]) @ gt[i + delta]
+        e = np.linalg.inv(d_gt) @ d_est
+        errs_t.append(np.linalg.norm(e[:3, 3]))
+        errs_r.append(np.arccos(np.clip((np.trace(e[:3, :3]) - 1) / 2, -1,
+                                        1)))
+    return (float(np.sqrt(np.mean(np.square(errs_t)))),
+            float(np.sqrt(np.mean(np.square(errs_r)))))
+
+
 class MetricsLogger:
     """Append-only JSONL per-scan metrics."""
 
@@ -136,3 +165,33 @@ class MetricsLogger:
             return []
         with open(self.path) as f:
             return [json.loads(line) for line in f if line.strip()]
+
+
+def compare_solutions(traj_a: Trajectory, traj_b: Trajectory):
+    """EvaPos-style comparison of two solutions ("Baseline vs Proposed"):
+    B interpolated onto A's times; a dict of ErrorStats for the position
+    components, the horizontal and 3D position error, the 3D velocity
+    error and the wrapped yaw difference."""
+    def interp(col):
+        return np.interp(traj_a.time, traj_b.time, col)
+
+    pos_b = np.stack([interp(traj_b.pos[:, i]) for i in range(3)], -1)
+    vel_b = np.stack([interp(traj_b.vel[:, i]) for i in range(3)], -1)
+    d = traj_a.pos - pos_b
+    out = {
+        "pos_x": error_stats(np.abs(d[:, 0])),
+        "pos_y": error_stats(np.abs(d[:, 1])),
+        "pos_z": error_stats(np.abs(d[:, 2])),
+        "pos_2d": error_stats(np.linalg.norm(d[:, :2], axis=1)),
+        "pos_3d": error_stats(np.linalg.norm(d, axis=1)),
+        "vel_3d": error_stats(np.linalg.norm(traj_a.vel - vel_b, axis=1)),
+    }
+
+    def yaw_of(q):
+        w, x, y, z = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+        return np.arctan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
+
+    yaw_b = interp(np.unwrap(yaw_of(traj_b.quat)))
+    dyaw = np.mod(yaw_of(traj_a.quat) - yaw_b + np.pi, 2 * np.pi) - np.pi
+    out["yaw"] = error_stats(np.abs(dyaw))
+    return out
