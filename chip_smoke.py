@@ -33,7 +33,11 @@ just after:
   and ``pipelines/icp_slam.icp_slam`` on its scenario (K4);
 - ``pipelines/fusion.ndt_eskf_fusion`` over the 16 odometry scans with a
   seeded IMU log of 20 ticks a scan (K2, K3, then the ESKF), and the app
-  ``toyslam_tpu_torch.apps.uwb_demo`` at its defaults.
+  ``toyslam_tpu_torch.apps.uwb_demo`` at its defaults;
+- the fleet (BASELINE config 5): ``pipelines/fusion.fleet_fusion`` over
+  64 lanes of 16 scans of 16 x 1024 rays (K2, K3 with a lane axis, the
+  ESKF over lanes), its chunks swept, and ``parallel/batch.vmap_align``
+  on the lanes' first pairs (K1 with a lane axis).
 
 It checks that every align converged and improved on its identity guess
 against the generated ground truth, that the card's exact NDT align lands
@@ -68,7 +72,17 @@ their gates (``uwb_demo``'s fused ATE also below its trilateration's);
 that ``icp_slam`` through K4 equals its plain route bit for bit; and that
 the fusion's poses equal phase 4's odometry bit for bit, its fused track
 lies within 5e-6 m of the same log through the f64 ESKF on the CPU and
-``eskf_run`` makes no host sync. The line
+``eskf_run`` makes no host sync. For the fleet it checks that every lane
+converged with a finite trajectory, that the lanes' iterations differ,
+that each lane checked (every lane of the first chunk and one of every
+other) equals ``ndt_odometry`` alone bit for bit and its fused track its
+own ESKF run within 3e-6 m, that every K1/K3 lane row equals the
+single-lane launch on its lane bit for bit and its plain version within
+``TERMS_MAG_RTOL``, and every K2 launch its plain version bit for bit,
+along one chunk of ``fusion.FLEET_CHUNK`` lanes through the plain
+versions, that a lockstep align makes one host sync a round, that ``eskf_run``
+over lanes makes none, that chunks change no lane and a rerun is
+bit-identical. The line
 before the card's line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it. There is no CPU path: without a CUDA
@@ -141,6 +155,28 @@ FUSED_TOL_M = 5e-6
 SEARCH_QUERIES = 4096
 IMU_PER_SCAN = 20
 SCAN_PERIOD_S = 0.1  # the generator's 0.3 m and 0.004 rad a scan at 10 Hz
+# Phase 24, the fleet (BASELINE config 5): 64 lanes of 16 scans of 16 x
+# 1024 rays at work_capacity 8192, 16 scenes of 19 scans each serving 4
+# lanes from start scans 0-3; the chunks swept; the lanes of one chunk
+# (``fusion.FLEET_CHUNK``) held to the plain versions at every evaluation
+# and every regather; the lane launches timed
+# at L 16 and 64. The fused track of a lane against its single-lane ESKF
+# run, in m: the batched matrix products round otherwise (the card read
+# 1.43e-6 m; NVIDIA H100 80GB HBM3, 700 W).
+FLEET_LANES, FLEET_SCANS, FLEET_SEEDS = 64, 16, 16
+FLEET_RAYS = (16, 1024)
+FLEET_CAPACITY = 8192
+FLEET_CHUNKS = (8, 16, 32, 64)
+FLEET_LANE_WIDTHS = (16, 64)
+FLEET_FUSED_TOL_M = 3e-6
+# A scan's align that the fleet's kernel and plain routes end more than
+# transformation_epsilon apart must sit on an edge of the data: the f64
+# align through the plain versions, from the kernel route's warm start moved
+# by a tenth of that epsilon (or from the routes' own warm starts, where
+# an earlier align of the lane ended apart), ends more than it apart, and
+# each route's end lies within it of one of those f64 ends
+# (``align_edge``).
+EDGE_MOVE = 1e-4
 NEW_PATH_KERNELS = ("ndt_terms_gathered", "ndt_gather_repack",
                     "ndt_terms_packed", "nearest_neighbor", "neg_dist_bf16",
                     "gicp_terms")
@@ -623,21 +659,22 @@ def mapping_path(scans, scan_mask, xyzi, mask, cfg, odo_out, a_xyzi,
 
     # 16. Coarse-to-fine odometry, kernels and plain versions.
     c_cfg = cfg._replace(coarse_leaf=COARSE_LEAF)
-    stages, real_align = [], ndt.ndt_align
+    stages, real_align = [], ndt.ndt_align_lanes  # the steps' aligns
 
     def recording(*args, **kw):
-        stages.append(real_align(*args, **kw))
-        return stages[-1]
+        res = real_align(*args, **kw)
+        stages.append(ndt.NDTResult(*(f[0] for f in res)))  # one lane
+        return res
 
     ndt_kernels.reset_launch_counts()
-    with mock.patch.object(ndt, "ndt_align", recording):
+    with mock.patch.object(ndt, "ndt_align_lanes", recording):
         c2f = odometry.ndt_odometry(scans[:COARSE_SCANS],
                                     scan_mask[:COARSE_SCANS], c_cfg)
     c_launch = dict(ndt_kernels.LAUNCHES)
     with ndt_odometry_edge.plain_route():
         c2f_plain = odometry.ndt_odometry(scans[:COARSE_SCANS],
                                           scan_mask[:COARSE_SCANS], c_cfg)
-    summed = [a.evaluations + b.evaluations
+    summed = [int(a.evaluations + b.evaluations)
               for a, b in zip(stages[::2], stages[1::2])]
     cp, pp = c2f.poses.double().numpy(), c2f_plain.poses.double().numpy()
     c_dt = float(np.abs(cp[:, :3, 3] - pp[:, :3, 3]).max())
@@ -648,7 +685,7 @@ def mapping_path(scans, scan_mask, xyzi, mask, cfg, odo_out, a_xyzi,
           f"(coarse + fine {summed}); kernels vs plain {c_dt:.3g} m, "
           f"{c_dr:.3g} rad (bounds {PAIRS_TOL_M} m, {PAIRS_TOL_RAD} rad)")
     check(bool(c2f.converged.all()) and bool(c2f_plain.converged.all())
-          and all(r.converged for r in stages),
+          and all(bool(r.converged) for r in stages),
           "a coarse-to-fine align did not converge")
     check(len(stages) == 2 * (COARSE_SCANS - 1)
           and c2f.evaluations[1:].tolist() == summed,
@@ -830,12 +867,20 @@ def kernel_err(name, args, got, want):
 
 
 def checked_plain_route(calls):
-    """K1-K6's wrappers replaced by their plain versions while the block
-    runs; each call also runs the kernel on the same inputs and appends
-    (name, points, error, within bound) to ``calls``: every
-    kernel held to its plain version at the shapes the path gives it."""
+    """K1-K6's wrappers, and K1's and K3's lane wrappers, replaced by their
+    plain versions while the block runs; each call also runs the kernel on
+    the same inputs and appends (name, points, error, within bound,
+    bit-identical to the one-lane launches) to ``calls``: every kernel
+    held to its plain version at the shapes the path gives it. A lane call
+    (name ``*_lanes``, points its L rows) holds each row to the plain row
+    and to the one-lane kernel launched on that row's lane; its error is
+    the worst row's. One-lane calls append None as the last."""
     from contextlib import ExitStack
 
+    import torch
+
+    from toyslam_tpu_torch.diag import ndt_odometry_edge
+    from toyslam_tpu_torch.diag.ndt_odometry_edge import lane_row_args
     from toyslam_tpu_torch.ops import gicp_kernels, ndt_kernels, nn_kernels
 
     def checked(mod, name):
@@ -846,11 +891,40 @@ def checked_plain_route(calls):
             got = kernel(*args)
             rows = (args[0].shape[0] if mod is nn_kernels
                     else max(args[1].shape))  # the points, either layout
-            calls.append((name, rows, *kernel_err(name, args, got, want)))
+            calls.append((name, rows, *kernel_err(name, args, got, want),
+                          None))
+            return want
+        return run
+
+    def checked_lanes(name):
+        kernel = getattr(ndt_kernels, name + "_lanes")
+        one_lane = getattr(ndt_kernels, name)  # before the patches below
+
+        def run(*args):
+            # The plain rows are the sums of the plain per-pair terms
+            # (``ndt_terms_*_lanes_plain``, bit for bit); the terms also
+            # give each sum's magnitudes, as ``kernel_err`` takes them.
+            got = kernel(*args)
+            ones = [lane_row_args(name, args, y, b)
+                    for y, b in enumerate(args[-1].tolist())]
+            terms = [ndt_odometry_edge._pair_terms(name, one) for one in ones]
+            want = torch.stack([t.sum(1) for t in terms])
+            alone = torch.stack([one_lane(*one) for one in ones])
+            scale = torch.stack([t.double().abs().sum(1) for t in terms])
+            diff = (got.double() - want.double()).abs()
+            mag = float((diff / scale.clamp_min(1e-300)).max())
+            rel = max(float((diff[:, sl].amax(1) / want[:, sl].double().abs()
+                             .amax(1).clamp_min(1e-30)).max())
+                      for sl in NDT_GROUPS)
+            calls.append((name + "_lanes", len(want), (rel, mag),
+                          mag <= TERMS_MAG_RTOL, torch_equal_bits(got, alone)))
             return want
         return run
 
     stack = ExitStack()
+    for name in ("ndt_terms_gathered", "ndt_terms_packed"):
+        stack.enter_context(mock.patch.object(
+            ndt_kernels, name + "_lanes", checked_lanes(name)))
     for mod in (ndt_kernels, nn_kernels, gicp_kernels):
         for name in mod.LAUNCHES:
             stack.enter_context(mock.patch.object(mod, name,
@@ -883,7 +957,7 @@ def align_app_kernels(s_ds, t_ds):
         tol_m, tol_rad = bounds.get(method, (PAIRS_TOL_M, PAIRS_TOL_RAD))
         d_t, d_r = pose_diff(res.transform, plain.transform)
         seen = {}
-        for name, rows, e, ok in calls:
+        for name, rows, e, ok, _ in calls:
             n, worst, good, shapes = seen.get(name, (0, None, True, set()))
             worst = e if worst is None else (
                 tuple(map(max, worst, e)) if isinstance(e, tuple)
@@ -1121,7 +1195,7 @@ def imu_log(num_scans, seed=0):
 
 def fusion_phase(dev, scans, scan_mask, odo_out):
     """Phase 22: ndt_eskf_fusion over the odometry scans. Returns the
-    kernels' launches in its run."""
+    kernels' launches in its run and the ESKF's ms a tick."""
     import torch
 
     from toyslam_tpu_torch.ops.launches import launches, reset_launches
@@ -1185,7 +1259,7 @@ def fusion_phase(dev, scans, scan_mask, odo_out):
     check(d_p <= FUSED_TOL_M, "the fused track on the card is far from the "
                               "f64 ESKF")
     check(not syncs, "eskf_run made a host sync")
-    return fus_launch
+    return fus_launch, tick_ms
 
 
 def uwb_phase():
@@ -1205,6 +1279,447 @@ def uwb_phase():
     check(rc == 0 and fused < tri, "uwb_demo failed its gate or the fused "
                                    "ATE is not below the trilateration's")
     tmp.cleanup()
+
+
+def fleet_inputs(dev):
+    """Phase 24's fleet-64: FLEET_LANES lanes of FLEET_SCANS scans of 16 x
+    1024 rays and each lane's seeded IMU log. Lane b is seed b // 4 of
+    FLEET_SEEDS scenes from start scan b % 4: the ray casting of 64 scenes
+    costs ~0.9 s of host a lane, so 16 scenes serve 4 lanes each."""
+    import torch
+
+    from toyslam_tpu_torch.sim.urban_scans import spinning_lidar_scans
+
+    per_seed = FLEET_LANES // FLEET_SEEDS
+    scans, masks = [], []
+    for seed in range(FLEET_SEEDS):
+        xyzi, mask, _ = spinning_lidar_scans(
+            seed, FLEET_SCANS + per_seed - 1, *FLEET_RAYS)
+        for start in range(per_seed):
+            scans.append(xyzi[start:start + FLEET_SCANS])
+            masks.append(mask[start:start + FLEET_SCANS])
+    imu = [imu_log(FLEET_SCANS, seed=b) for b in range(FLEET_LANES)]
+    acc, gyro, dt = (torch.from_numpy(np.stack([x[i] for x in imu])).to(
+        dev, torch.float32) for i in range(3))
+    return (torch.from_numpy(np.stack(scans)).to(dev),
+            torch.from_numpy(np.stack(masks)).to(dev), acc, gyro, dt)
+
+
+def lane_kernel_args(m, src, cfg, poses):
+    """K1 and K3 lane operands over every lane of a lane map and its
+    sources at host poses [B, 6] (a row a lane, in lane order), the
+    neighbourhoods of K3 gathered at those poses; and each lane's counts
+    for the bounds."""
+    import torch
+
+    from toyslam_tpu_torch.ops import ndt_kernels
+    from toyslam_tpu_torch.registration import ndt
+
+    B = src.mask.shape[0]
+    d1, d2, _ = ndt.gauss_coefficients(cfg.resolution, cfg.outlier_ratio)
+    offsets = ndt._OFFSETS[cfg.search_method]
+    evs = [ndt._Evaluator(ndt.NDTMap(*(f[b] for f in m)), src.xyzi[b, :, :3],
+                          src.mask[b], cfg.resolution, offsets, d1, d2)
+           for b in range(B)]
+    params = torch.stack([ev.params(p) for ev, p in zip(evs, poses)])
+    hashed = [ev.neighbor_hash(params[b]) for b, ev in enumerate(evs)]
+    stats = torch.stack([ndt_kernels.ndt_gather_repack_plain(
+        m.hash_table[b], *hashed[b]) for b in range(B)])
+    xyz = torch.stack([ev.xyz for ev in evs])
+    ids = torch.arange(B, dtype=torch.int32, device=xyz.device)
+    k1 = (params, xyz, src.mask, m.hash_table, m.min_b, m.div, evs[0].inv_leaf,
+          evs[0].offsets, ids)
+    k3 = (params, xyz, stats, ids)
+    counts = []
+    for b in range(B):
+        gate = stats[b, 9] > 0.5
+        h, _, okm = hashed[b]
+        counts.append({
+            "valid": int(src.mask[b].sum()),
+            "open_pairs": int(gate.sum()),
+            "open_points": int(gate.view(len(offsets), -1).any(0).sum()),
+            "rows": int(torch.unique(h[okm]).numel()),
+            "open_rows": int(torch.unique(h[gate]).numel()),
+            "pairs": int(gate.numel())})
+    return k1, k3, counts
+
+
+def lane_bounds(k1, k3, counts, L):
+    """The bounds of a K1 and a K3 launch over lanes 0..L-1, as phase 6
+    counts one lane, summed over the lanes."""
+    params, xyz = k1[0], k1[1]
+    n = xyz.shape[2]
+    c = counts[:L]
+    per_lane_in = 4 * 83 + 4 * 3 * n  # a params row and a lane's points
+    k1_bytes = sum(per_lane_in + n + 2 * 3 * 4 + 16 * x["rows"]
+                   + 32 * x["open_rows"] + 28 * 4 for x in c) + nbytes(k1[7])
+    k1_ops = sum(NDT_FLOPS_TRANSFORM * x["valid"]
+                 + (NDT_FLOPS_PER_POINT - NDT_FLOPS_TRANSFORM)
+                 * x["open_points"] + NDT_FLOPS_PER_PAIR * x["open_pairs"]
+                 for x in c)
+    k3_bytes = sum(per_lane_in + 4 * x["pairs"] + 36 * x["open_pairs"]
+                   + 28 * 4 for x in c)
+    k3_ops = sum(NDT_FLOPS_PER_POINT * x["open_points"]
+                 + NDT_FLOPS_PER_PAIR * x["open_pairs"] for x in c)
+    return bound(k1_bytes, k1_ops), bound(k3_bytes, k3_ops)
+
+
+def align_edge(xyzi, mask, k, warms, ends, ocfg):
+    """Whether scan k's align of one fleet lane, which the kernel and plain
+    routes end more than ``transformation_epsilon`` apart, sits on an edge
+    of the data (the question ``diag/ndt_odometry_edge`` asks of
+    odometry-256k's scan 10): the f64 align of the same scan pair through
+    the plain versions from each route's warm start (``warms``) and, where
+    those lie within ``transformation_epsilon`` of each other (no earlier
+    align of the lane ended apart), from the first moved by EDGE_MOVE along
+    every axis of the pose chart. Returns
+    the largest distance between two of those f64 ends and, for each
+    route's end (``ends``), its distance to the nearest f64 end; a
+    distance is the larger of its m and rad."""
+    from toyslam_tpu_torch.diag import ndt_odometry_edge
+    from toyslam_tpu_torch.pipelines import odometry
+    from toyslam_tpu_torch.registration import ndt
+
+    x = xyzi.double()
+    with ndt_odometry_edge.plain_route():
+        prev = odometry._downsample(x[k - 1], mask[k - 1], ocfg)
+        cur = odometry._downsample(x[k], mask[k], ocfg)
+        m = ndt.build_ndt_map(prev, ocfg.ndt)
+        starts = [w.double() for w in warms]
+        if max(pose_diff(*starts)) <= ocfg.ndt.transformation_epsilon:
+            starts += [ndt_odometry_edge._moved(starts[0], axis,
+                                                sign * EDGE_MOVE)
+                       for axis in range(6) for sign in (1.0, -1.0)]
+        refs = [ndt.ndt_align(m, cur, g, ocfg.ndt).transform.numpy()
+                for g in starts]
+
+    def dist(a, b):
+        return max(pose_diff(a, b))
+
+    spread = max(dist(a, b) for a in refs for b in refs)
+    return spread, [min(dist(e, r) for r in refs) for e in ends]
+
+
+def torch_equal_bits(a, b):
+    import torch
+
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def fleet_phase(dev, single_tick_ms):
+    """Phase 24: the fleet (BASELINE config 5) at fleet-64 through
+    ``fleet_fusion`` (K2, K3) and ``vmap_align`` on the lanes' first pairs
+    (K1). Returns {kernel: {key: value}} for the kernels line."""
+    import torch
+
+    from toyslam_tpu_torch.core import pointcloud
+    from toyslam_tpu_torch.ops import ndt_kernels
+    from toyslam_tpu_torch.ops.launches import launches, reset_launches
+    from toyslam_tpu_torch.parallel import batch
+    from toyslam_tpu_torch.pipelines import fusion, odometry
+    from toyslam_tpu_torch.registration import ndt
+
+    card = card_line()
+    t0 = time.perf_counter()
+    scans, masks, acc, gyro, dt = fleet_inputs(dev)
+    gen_s = time.perf_counter() - t0
+    B, S = masks.shape[:2]
+    cfg = fusion.FusionConfig(
+        odometry=odometry.OdometryConfig(work_capacity=FLEET_CAPACITY),
+        imu_per_scan=IMU_PER_SCAN)
+    chunk = fusion.FLEET_CHUNK
+    print(f"phase 24 fleet-64: {B} lanes x {S} scans of {scans.shape[2]} "
+          f"rays ({FLEET_SEEDS} scenes, {B // FLEET_SEEDS} start scans "
+          f"each; {gen_s:.1f} s on the host), work_capacity "
+          f"{FLEET_CAPACITY}, {IMU_PER_SCAN} IMU ticks a scan; chunk {chunk}")
+
+    # The fleet's run, counts from 0.
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fusion.fleet_fusion(scans, masks, acc, gyro, dt, cfg, chunk)
+    torch.cuda.synchronize()
+    fleet_s = time.perf_counter() - t0
+    fleet_launch = {k: v for k, v in launches().items()
+                    if k in ("ndt_terms_gathered", "ndt_gather_repack",
+                             "ndt_terms_packed")}
+    lane_rows = dict(ndt_kernels.LANE_ROWS)
+    o = out.odometry
+    steps = S - 1
+    rounds = int(o.host_syncs[::chunk, 1:].sum())  # one a chunk, every scan
+    print(f"  fleet_fusion: {fleet_s:.2f} s, {B * steps / fleet_s:.2f} "
+          f"aggregate scans/s ({card}); launches {fleet_launch}, lane rows "
+          f"{lane_rows}; {rounds / steps:.2f} lockstep rounds = host syncs a "
+          f"scan step over the {B // chunk} chunks "
+          f"({rounds / steps / (B // chunk):.2f} a chunk)")
+    poses = o.poses.double().numpy()
+    check(bool(out.converged.all()), "a fleet align did not converge")
+    check(np.isfinite(poses).all() and bool(torch.isfinite(out.fused_p).all()),
+          "non-finite fleet trajectory")
+    check(fleet_launch["ndt_terms_packed"] > 0
+          and fleet_launch["ndt_gather_repack"] > 0,
+          "the fleet launched no K3 or no K2")
+    its = o.iterations[:, 1:]
+    mixed = int((its != its[:1]).any(0).sum())
+    print(f"  iterations a lane: min {int(its.min())} max {int(its.max())}; "
+          f"scans whose lanes' iterations differ: {mixed} of {steps}")
+    check(mixed > 0, "every lane took the same iterations: the lockstep "
+                     "masking is not exercised")
+    # Every lockstep round evaluated each running lane once.
+    ev = o.evaluations[:, 1:].reshape(B // chunk, chunk, steps)
+    check(torch.equal(o.host_syncs[:, 1:].reshape(B // chunk, chunk,
+                                                  steps)[:, 0], ev.amax(1)),
+          "lockstep rounds differ from the lanes' most evaluations")
+
+    # Lanes against ndt_odometry alone: the first chunk whole, the last
+    # lane of every other chunk.
+    lanes = list(range(chunk)) + list(range(2 * chunk - 1, B, chunk))
+    t0 = time.perf_counter()
+    fused_gap = 0.0
+    for b in lanes:
+        one = odometry.ndt_odometry(scans[b], masks[b], cfg.odometry)
+        for name, g, w in zip(one._fields, o, one):
+            if name != "host_syncs":
+                check(torch.equal(g[b], w), f"fleet lane {b}'s {name} "
+                                            "differs from ndt_odometry alone")
+        alone = fusion._fused(one, acc[b], gyro[b], dt[b], cfg)
+        fused_gap = max(fused_gap, float(
+            (out.fused_p[b] - alone.fused_p).abs().max()))
+    print(f"  {len(lanes)} lanes ({lanes[0]}-{chunk - 1} and "
+          f"{lanes[chunk:]}) equal to ndt_odometry alone bit for bit (poses, "
+          f"iterations, evaluations, gathers) ({time.perf_counter() - t0:.1f}"
+          f" s); fused track vs the lane's own ESKF run max {fused_gap:.3g} m "
+          f"(bound {FLEET_FUSED_TOL_M} m)")
+    check(fused_gap <= FLEET_FUSED_TOL_M, "a fleet lane's fused track is far "
+                                          "from its single-lane ESKF run")
+
+    # One chunk through the plain versions, every kernel call checked.
+    calls = []
+    c = chunk
+    with checked_plain_route(calls):
+        plain = fusion.ndt_eskf_fusion_lanes(scans[:c], masks[:c], acc[:c],
+                                             gyro[:c], dt[:c], cfg)
+    by = {}
+    for name, L, e, good, same in calls:
+        mag = e[1] if isinstance(e, tuple) else e  # K2: its max abs error
+        n, w, g, s, rows = by.get(name, (0, 0.0, True, True, 0))
+        by[name] = (n + 1, max(w, mag), g and good,
+                    s and same is not False, rows + L)
+    pp = plain.poses.double().numpy()
+    chain_t = float(np.abs(pp[..., :3, 3] - poses[:c, :, :3, 3]).max())
+    chain_r = max(rotation_angle(a[:3, :3], b_[:3, :3])
+                  for a, b_ in zip(pp.reshape(-1, 4, 4),
+                                   poses[:c].reshape(-1, 4, 4)))
+    # Each scan's align, pairwise: an align stops once its Newton step is
+    # below transformation_epsilon, so two routes whose sums differ in
+    # rounding can stop a step apart, and the chain adds those steps up.
+    pw = [[pose_diff(a, b_) for a, b_ in zip(
+        plain.odometry.pairwise[b].numpy(), o.pairwise[b].numpy())]
+        for b in range(c)]
+    gaps = np.array(pw)  # [c, S, 2]
+    worst = np.unravel_index(np.argmax(gaps[..., 0]), gaps.shape[:2])
+    d_t, d_r = float(gaps[..., 0].max()), float(gaps[..., 1].max())
+    fleet_eps = cfg.odometry.ndt.transformation_epsilon
+    # Aligns that end apart: each must be an edge of the data.
+    t0 = time.perf_counter()
+    eye = torch.eye(4, dtype=o.pairwise.dtype)
+    edges = []
+    for b, k in zip(*np.nonzero((gaps[:, 1:] > fleet_eps).any(-1))):
+        k += 1  # scan 0 seeds each lane
+        routes = (o.pairwise[b], plain.odometry.pairwise[b])
+        warms = [r[k - 1] if cfg.odometry.warm_start else eye for r in routes]
+        spread, reached = align_edge(scans[b], masks[b], int(k), warms,
+                                     [r[k].double().numpy() for r in routes],
+                                     cfg.odometry)
+        edges.append((int(b), int(k), float(gaps[b, k].max()), spread,
+                      max(reached)))
+    edge_s = time.perf_counter() - t0
+    k3 = by.get("ndt_terms_packed_lanes")
+    check(k3 is not None, "the plain fleet route reached no K3 lane call")
+    n, w, g, s, rows = k3
+    print(f"  ndt_terms_packed lane launches along the plain route of lanes "
+          f"0-{c - 1}: {n} launches, {rows} lane rows; max err {w:.3g} of "
+          f"the terms' magnitudes (bound {TERMS_MAG_RTOL}), within: {g}; "
+          f"every row bit-identical to its single-lane launch: {s}")
+    check(g, "ndt_terms_packed's lane kernel disagrees with its plain "
+             "version")
+    check(s, "ndt_terms_packed's lane kernel differs from its single-lane "
+             "launch")
+    k2 = by.get("ndt_gather_repack", (0, 0.0, False, True, 0))
+    print(f"  ndt_gather_repack along the same route: {k2[0]} launches over "
+          f"the regathering lanes' pairs (up to {c} lanes' in a [{c} x "
+          f"{cfg.odometry.ndt.grid_capacity}, 16] table), bit-identical to its plain version: "
+          f"{k2[2]}")
+    check(k2[0] and k2[2], "K2 disagrees with its plain version along the "
+                           "fleet")
+    check(set(by) == {"ndt_terms_packed_lanes", "ndt_gather_repack"},
+          f"the plain fleet route reached {set(by)}")
+    print(f"  kernels vs plain fleet of lanes 0-{c - 1}: each scan's align "
+          f"(pairwise) max {d_t:.3g} m (lane {worst[0]}, scan {worst[1]}), "
+          f"{d_r:.3g} rad (bound off an edge of the data: the align's "
+          f"transformation_epsilon, {fleet_eps} m and rad); the chained "
+          f"poses max {chain_t:.3g} m, {chain_r:.3g} rad")
+    print(f"  aligns of the {c * (S - 1)} that end more than "
+          f"{fleet_eps} apart: {len(edges)}; each against the f64 align "
+          f"through the plain versions from both routes' warm starts and, "
+          f"where those agree, the kernel route's moved by {EDGE_MOVE} "
+          f"along each axis ({edge_s:.1f} s): "
+          + "; ".join(f"lane {b} scan {k}: routes {g:.3g} apart, f64 ends "
+                      f"spread {sp:.3g}, each route within {r:.3g} of an "
+                      f"f64 end" for b, k, g, sp, r in edges))
+    check(all(sp > fleet_eps and r <= fleet_eps
+              for _, _, _, sp, r in edges),
+          "the fleet's kernel and plain routes disagree off an edge of the "
+          "data")
+
+    # One lockstep align of a chunk: one host sync a round.
+    ds = [pointcloud.voxel_downsample_lanes(
+        scans[:chunk, k], masks[:chunk, k], cfg.odometry.scan_leaf,
+        FLEET_CAPACITY, with_intensity=False) for k in (0, 1)]
+    lmap = ndt.build_ndt_map_lanes(ds[0], cfg.odometry.ndt)
+    count_syncs(lambda: None)  # the mode's own one-time warning
+    res, where = count_syncs(lambda: ndt.ndt_align_lanes(
+        lmap, ds[1], None, cfg.odometry.ndt))
+    reported = sum(where.values())
+    print(f"  one lockstep align of {chunk} lanes: {int(res.host_syncs[0])} "
+          f"rounds, evaluations a lane {res.evaluations.tolist()}; "
+          f"synchronising calls reported by the sync debug mode {reported}: "
+          f"{where}")
+    check(reported == int(res.host_syncs[0])
+          == int(res.evaluations.max()), "not one host sync a lockstep round")
+
+    # Device operations and busy share over one scan step of a chunk.
+    state = odometry.odometry_init_lanes(scans[:chunk, 0], masks[:chunk, 0],
+                                         cfg.odometry)
+    step = {}
+    wall, busy, n_ops, top = device_profile(lambda: step.update(
+        out=odometry.odometry_step_lanes(state, scans[:chunk, 1],
+                                         masks[:chunk, 1], cfg.odometry)))
+    r = int(step["out"][1][7][0])
+    print(f"  one scan step of a {chunk}-lane chunk under torch.profiler: "
+          f"wall {wall:.2f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / wall:.1f} %), {n_ops} device operations, {r} "
+          f"rounds ({n_ops / r:.1f} "
+          f"operations a round, map build and downsample included); top:")
+    for key, calls_, dev_ms in top:
+        print(f"    {dev_ms:.3f} ms in {calls_} calls: {key[:90]}")
+
+    # The batched ESKF over the fleet's lanes: the fixes' log and one pass.
+    T = acc.shape[1]
+    _, eskf_syncs = count_syncs(lambda: fusion._fused(o, acc, gyro, dt, cfg))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fusion._fused(o, acc, gyro, dt, cfg)
+    torch.cuda.synchronize()
+    tick_ms = 1e3 * (time.perf_counter() - t0) / T
+    print(f"  the ESKF over {B} lanes: {tick_ms:.4f} ms a tick for all lanes "
+          f"(host clock over {T} ticks; phase 22's single lane "
+          f"{single_tick_ms:.4f}); "
+          f"synchronising calls in the fixes' log and eskf_run by line: "
+          f"{eskf_syncs}")
+    check(not eskf_syncs, "eskf_run over lanes made a host sync")
+
+    # K1 and K3 lane launches at the fleet shape, L = 16 and 64: lanes'
+    # scans 0 as maps, scans 1 as sources at the identity.
+    m64 = ndt.build_ndt_map_lanes(pointcloud.voxel_downsample_lanes(
+        scans[:, 0], masks[:, 0], cfg.odometry.scan_leaf, FLEET_CAPACITY,
+        with_intensity=False), cfg.odometry.ndt)
+    s64 = pointcloud.voxel_downsample_lanes(
+        scans[:, 1], masks[:, 1], cfg.odometry.scan_leaf, FLEET_CAPACITY,
+        with_intensity=False)
+    k1, k3, counts = lane_kernel_args(m64, s64, cfg.odometry.ndt,
+                                      np.zeros((B, 6), np.float32))
+    lane_ms = {}
+    for L in FLEET_LANE_WIDTHS:
+        a1 = (k1[0][:L],) + k1[1:8] + (k1[8][:L],)
+        a3 = (k3[0][:L],) + k3[1:3] + (k3[3][:L],)
+        b1, b3 = lane_bounds(k1, k3, counts, L)
+        for name, fn, args, bd in (
+                ("ndt_terms_gathered", ndt_kernels.ndt_terms_gathered_lanes,
+                 a1, b1),
+                ("ndt_terms_packed", ndt_kernels.ndt_terms_packed_lanes, a3,
+                 b3)):
+            got = fn(*args)
+            want = getattr(ndt_kernels, name + "_lanes_plain")(*args)
+            rel = max(terms_err(got[y], want[y], NDT_GROUPS)[0]
+                      for y in range(L))
+            check(rel <= TERMS_RTOL, f"{name} lanes at L {L}: {rel:.3g}")
+            d_ms = device_ms_per_launch(lambda f=fn, a=args: f(*a),
+                                        CUDA_NAMES[name])
+            lane_ms.setdefault(name, {})[L] = {
+                "device_ms": d_ms, "bound_ms": bd[0], "bound_by": bd[1],
+                "ms": cuda_ms(lambda f=fn, a=args: f(*a)),
+                "max_rel_err": rel}
+    print(f"  lane launches at the fleet shape (N {FLEET_CAPACITY}, DIRECT7, "
+          f"identity poses; {card}), torch.profiler's device time a launch "
+          f"over {REPS}:")
+    for name, per in lane_ms.items():
+        for L, x in per.items():
+            print(f"    {name} L {L}: device {x['device_ms']:.4f} ms "
+                  f"({x['device_ms'] / L:.5f} a lane), by events "
+                  f"{x['ms']:.4f} ms, bound {x['bound_ms']:.4f} ms "
+                  f"({x['bound_by']}; {x['bound_ms'] / x['device_ms']:.1%} "
+                  f"reached); vs plain max rel err {x['max_rel_err']:.3g}")
+
+    # vmap_align on the lanes' first pairs through K1.
+    reset_launches()
+    t0 = time.perf_counter()
+    va = batch.vmap_align(scans[:, 0], masks[:, 0], scans[:, 1], masks[:, 1])
+    va_s = time.perf_counter() - t0
+    va_launch = launches()["ndt_terms_gathered"]
+    for b in (0, B - 1):
+        one = ndt.ndt_align(
+            ndt.build_ndt_map(pointcloud.PointCloud(scans[b, 0], masks[b, 0]),
+                              ndt.NDTConfig()),
+            pointcloud.PointCloud(scans[b, 1], masks[b, 1]))
+        check(torch.equal(va.pose6[b], one.pose6)
+              and int(va.evaluations[b]) == one.evaluations,
+              f"vmap_align lane {b} differs from ndt_align alone")
+    print(f"  vmap_align over the {B} lanes' scans 0 and 1 (NDTConfig(): "
+          f"exact, K1): {va_s:.2f} s, {va_launch} K1 launches = rounds "
+          f"{int(va.host_syncs[0])}; iterations {va.iterations.min().item()}"
+          f"-{va.iterations.max().item()}; lanes 0 and {B - 1} equal to "
+          f"ndt_align alone bit for bit")
+    check(bool(va.converged.all()) and va_launch == int(va.host_syncs[0]) > 0,
+          "vmap_align did not converge or did not run one K1 launch a round")
+
+    # The chunk sweep; chunk FLEET_CHUNK again is the rerun.
+    sweep = {}
+    for width in FLEET_CHUNKS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = fusion.fleet_fusion(scans, masks, acc, gyro, dt, cfg, width)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        same_odo = all(torch.equal(a, b_) for name, a, b_ in zip(
+            o._fields, again.odometry, o) if name != "host_syncs")
+        gap = float((again.fused_p - out.fused_p).abs().max())
+        sweep[width] = {"s": sec, "scans_per_s": B * steps / sec,
+                        "odometry_equal": same_odo, "fused_gap_m": gap}
+        check(same_odo, f"chunk {width} changed a lane's odometry")
+        check(gap <= FLEET_FUSED_TOL_M, f"chunk {width} moved a fused track "
+                                        f"by {gap:.3g} m")
+        if width == chunk:
+            check(all(torch.equal(a, b_) for a, b_ in zip(
+                again[1:4], out[1:4])), "the fleet's rerun is not "
+                                        "bit-identical")
+    print(f"  chunk sweep ({card}), host clock of one fleet_fusion over "
+          f"B {B}: " + "; ".join(
+              f"chunk {w}: {x['s']:.2f} s, {x['scans_per_s']:.2f} scans/s, "
+              f"odometry equal {x['odometry_equal']}, fused max "
+              f"{x['fused_gap_m']:.3g} m" for w, x in sweep.items())
+          + f"; chunk {chunk} rerun bit-identical")
+    return {
+        "ndt_terms_gathered": {
+            "fleet_launches": fleet_launch["ndt_terms_gathered"],
+            "vmap_align_launches": va_launch,
+            "fleet_lane_launches": lane_ms["ndt_terms_gathered"]},
+        "ndt_gather_repack": {
+            "fleet_launches": fleet_launch["ndt_gather_repack"]},
+        "ndt_terms_packed": {
+            "fleet_launches": fleet_launch["ndt_terms_packed"],
+            "fleet_lane_rows": lane_rows["ndt_terms_packed"],
+            "fleet_lane_launches": lane_ms["ndt_terms_packed"]}}
 
 
 def main() -> int:
@@ -1964,12 +2479,15 @@ def main() -> int:
                               a_xyzi, a_mask)
     app_launch, search_args = align_app_phase(dev, a_xyzi, a_mask, a_gt)
     search_phase(dev, *search_args)
+    slam_launch = icp_slam_phase(dev)
+    fus_launch, tick_ms = fusion_phase(dev, scans, scan_mask, out)
     new_paths = {
         "align_app_launches": app_launch,
-        "icp_slam_launches": icp_slam_phase(dev),
-        "fusion_launches": fusion_phase(dev, scans, scan_mask, out),
+        "icp_slam_launches": slam_launch,
+        "fusion_launches": fus_launch,
     }
     uwb_phase()
+    fleet = fleet_phase(dev, tick_ms)
 
     print(card)
     kernels = [{
@@ -1990,6 +2508,8 @@ def main() -> int:
     for key, counts in new_paths.items():  # phases 19, 21 and 22
         for name in NEW_PATH_KERNELS:
             kernels[list(KERNELS).index(name)][key] = counts.get(name, 0)
+    for name, extra in fleet.items():  # phase 24
+        kernels[list(KERNELS).index(name)].update(extra)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -73,10 +73,13 @@ def test_segment_sums_match_numpy_oracle(rng):
     keys[-150:] = segment.INT_MAX  # invalid tail
     vals = rng.normal(size=(n, 3))
     vals[-150:] = 0.0
-    kt = torch.from_numpy(keys)
-    first, pos, n_unique = segment.run_bookkeeping(kt)
-    sums, starts = segment.seg_reduce(kt, torch.from_numpy(vals), first, pos,
-                                      S)
+    # One row of the lane forms (B = 1).
+    kt = torch.from_numpy(keys)[None]
+    vt = torch.from_numpy(vals)[None]
+    first, pos, n_unique = segment.run_bookkeeping_lanes(kt)
+    sums, starts = segment.seg_reduce_lanes(kt, vt, first, pos, S)
+    first, pos, n_unique = first[0], pos[0], n_unique[0]
+    sums, starts = sums[0], starts[0]
     uniq, idx = np.unique(keys[:-150], return_index=True)
     assert int(n_unique) == len(uniq)
     assert np.array_equal(first.numpy().nonzero()[0], idx)
@@ -85,17 +88,32 @@ def test_segment_sums_match_numpy_oracle(rng):
     np.testing.assert_allclose(sums.numpy()[:k], want, atol=1e-12)
     assert np.array_equal(starts.numpy()[:k], idx[:k])
     assert not sums.numpy()[k:].any()
-    bc = segment.seg_broadcast(sums, pos).numpy()
+    bc = segment.seg_broadcast_lanes(sums[None], pos[None])[0].numpy()
     np.testing.assert_array_equal(bc[idx[:k]], sums.numpy()[:k])
     # Reruns are bit-identical (no scheduling-dependent sums).
-    again, _ = segment.seg_reduce(kt, torch.from_numpy(vals), first, pos, S)
-    assert torch.equal(sums, again)
+    again, _ = segment.seg_reduce_lanes(kt, vt, first[None], pos[None], S)
+    assert torch.equal(sums, again[0])
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_sort_lanes_matches_each_rows_stable_sort(rng, B):
+    """One sort of B rows (int64 lane-major keys, or the int32 keys at B =
+    1) gives each row's stable sort, ``order`` indexing the flat rows."""
+    keys = rng.integers(-50, 50, (B, 400)).astype(np.int32)
+    keys[:, -40:] = segment.INT_MAX
+    kt = torch.from_numpy(keys)
+    got, order = segment.sort_lanes(kt)
+    for b in range(B):
+        want, want_order = torch.sort(kt[b], stable=True)
+        assert torch.equal(got[b], want)
+        assert torch.equal(order[b], want_order + b * keys.shape[1])
 
 
 def test_segment_sums_all_invalid():
-    kt = torch.full((64,), segment.INT_MAX, dtype=torch.int32)
-    first, pos, n_unique = segment.run_bookkeeping(kt)
-    sums, _ = segment.seg_reduce(kt, torch.zeros(64, 2), first, pos, 8)
+    kt = torch.full((1, 64), segment.INT_MAX, dtype=torch.int32)
+    first, pos, n_unique = segment.run_bookkeeping_lanes(kt)
+    sums, _ = segment.seg_reduce_lanes(kt, torch.zeros(1, 64, 2), first, pos,
+                                       8)
     assert int(n_unique) == 0 and not first.any() and not sums.any()
 
 

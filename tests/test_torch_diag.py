@@ -313,11 +313,52 @@ def test_moved_warm_start_moves_one_coordinate():
         np.testing.assert_allclose((p - p0).numpy(), step, atol=1e-12)
 
 
+@pytest.mark.parametrize("frozen", [False, True])
+def test_plain_route_holds_lane_kernels_at_each_row(ndt_pair, frozen):
+    """Along a lockstep align (the odometry's aligns), ``plain_route(errors)``
+    replaces the K1/K3 lane wrappers too and holds the kernel at every row
+    of every lane call: one error entry per lane evaluation, each 0 on CPU
+    tensors; the lane wrappers are restored after the block."""
+    from toyslam_tpu_torch.core.pointcloud import PointCloud
+    from toyslam_tpu_torch.ops import ndt_kernels
+    from toyslam_tpu_torch.registration import ndt
+
+    wrappers = (ndt_kernels.ndt_terms_gathered_lanes,
+                ndt_kernels.ndt_terms_packed_lanes)
+    cfg = ndt.NDTConfig(grid_capacity=1 << 15, map_capacity=8192,
+                        frozen_linesearch=frozen)
+    targets = PointCloud(torch.stack([ndt_pair[0].xyzi, ndt_pair[1].xyzi]),
+                         torch.stack([ndt_pair[0].mask, ndt_pair[1].mask]))
+    sources = PointCloud(targets.xyzi.flip(0), targets.mask.flip(0))
+    errors = []
+    with ndt_odometry_edge.plain_route(errors, magnitudes=True):
+        assert ndt_kernels.ndt_terms_packed_lanes is not wrappers[1]
+        res = ndt.ndt_align_lanes(ndt.build_ndt_map_lanes(targets, cfg),
+                                  sources, None, cfg)
+    assert res.converged.all()
+    assert len(errors) == int(res.evaluations.sum()) > 2
+    assert all(rel == 0.0 and mag == 0.0 for _, rel, mag in errors)
+    assert {name for name, _, _ in errors} == (
+        {"ndt_terms_gathered", "ndt_terms_packed"} if frozen
+        else {"ndt_terms_gathered"})
+    assert (ndt_kernels.ndt_terms_gathered_lanes,
+            ndt_kernels.ndt_terms_packed_lanes) == wrappers
+
+
 def test_ndt_odometry_edge_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the diagnostic runs there")
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         ndt_odometry_edge.main()
+
+
+def test_single_lane_stages_needs_a_card():
+    from toyslam_tpu_torch.diag import single_lane_stages
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the diagnostic runs there")
+    with pytest.raises(RuntimeError, match="needs a CUDA device"):
+        single_lane_stages.run()
 
 
 def test_magnitude_err_ignores_cancellation():

@@ -33,6 +33,13 @@ on the CPU: the ESKF's p, v, q within 1e-4 over 400 ticks (CPU f32
 against f64 differs by 3.2e-7; the card's f32 may round otherwise, by FMA
 contraction), the fixes within 1e-3 m (CPU f32 against f64: 1.4e-4 m, the
 vertical DOP of ~12 of the anchor ring magnifying f32 rounding).
+K1/K3 with a lane axis (the fleet): each lane of a launch over L = 1, 3
+or 64 lanes in shuffled order bit-identical to the single-lane launch on
+its inputs, within rtol 1e-4 of the plain versions as above, a rerun
+bit-identical, one device operation a lane launch; a 4-lane
+``fleet_fusion`` with its odometry equal to the single-lane runs bit for
+bit and its fused track within 1e-5 m of theirs (f32; the batched matrix
+products of the lanes' ESKF may round otherwise than the 2-D ones).
 D1: ``highest`` bit-identical; the split modes within 2^-16 of the largest
 |s.t| (the same exact bf16 products, summed by the tensor core in place of
 the plain version's f32 adds; a bf16-level sum would miss by ~2^-9). D2
@@ -203,6 +210,139 @@ def test_ndt_sums_one_device_operation_a_call(cuda, ndt_scene):
         ops = [(e.key, e.count) for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
         assert sum(c for _, c in ops) == 1, ops
+
+
+
+@pytest.fixture(scope="module")
+def lane_scene(cuda):
+    """Four lanes on the card: the 1 m lane map of each lane's first
+    downsampled scan (its own scene and grid) and its second scan, with
+    per-lane poses and the frozen neighbourhoods of DIRECT7 there."""
+    xs, ms = [], []
+    for seed in (4, 6, 7, 9):
+        x, m, _ = spinning_lidar_scans(seed, 2, 16, 1024)
+        xs.append(x)
+        ms.append(m)
+    xyzi = torch.from_numpy(np.stack(xs)).to(cuda)
+    mask = torch.from_numpy(np.stack(ms)).to(cuda)
+    cfg = ndt.NDTConfig(map_capacity=8192)
+    tgt = pointcloud.voxel_downsample_lanes(xyzi[:, 0], mask[:, 0], 0.3,
+                                            8192, with_intensity=False)
+    src = pointcloud.voxel_downsample_lanes(xyzi[:, 1], mask[:, 1], 0.3,
+                                            8192, with_intensity=False)
+    return ndt.build_ndt_map_lanes(tgt, cfg), src
+
+
+def _lane_case(lane_scene, search, lanes):
+    """K1 and K3 lane operands of ``lanes`` (an id a grid row, lanes of
+    the 4-lane scene repeated up to 64 rows) and the single-lane operands
+    of each row."""
+    m, src = lane_scene
+    B = src.mask.shape[0]
+    d1, d2, _ = ndt.gauss_coefficients(1.0, 0.55)
+    evs = [ndt._Evaluator(ndt.NDTMap(*(f[b] for f in m)), src.xyzi[b, :, :3],
+                          src.mask[b], 1.0, ndt._OFFSETS[search], d1, d2)
+           for b in range(B)]
+    rows = []
+    for y, b in enumerate(lanes):
+        p = np.array([0.1 + 0.01 * y, -0.05, 0.0, 0.0, 0.0, 0.002 * b],
+                     np.float32)
+        rows.append(evs[b].params(p))
+    params = torch.stack(rows)
+    xyz = torch.stack([ev.xyz for ev in evs])
+    stats = torch.stack([ndt_kernels.ndt_gather_repack_plain(
+        m.hash_table[b], *evs[b].neighbor_hash(params[
+            lanes.index(b)] if b in lanes else params[0]))
+        for b in range(B)])
+    ids = torch.tensor(lanes, dtype=torch.int32, device=params.device)
+    k1 = (params, xyz, src.mask, m.hash_table, m.min_b, m.div, 1.0,
+          evs[0].offsets, ids)
+    k3 = (params, xyz, stats, ids)
+    singles = [((params[y], xyz[b], src.mask[b], m.hash_table[b], m.min_b[b],
+                 m.div[b], 1.0, evs[0].offsets), (params[y], xyz[b], stats[b]))
+               for y, b in enumerate(lanes)]
+    return k1, k3, singles
+
+
+LANE_SETS = {"L1": [2], "L3": [3, 0, 2],
+             "L64": [int(b) for b in np.random.default_rng(3).integers(0, 4,
+                                                                        64)]}
+
+
+@pytest.mark.parametrize("lanes", list(LANE_SETS))
+@pytest.mark.parametrize("search", ["DIRECT1", "DIRECT7", "DIRECT27"])
+def test_ndt_lane_kernels_equal_single_lane_on_card(cuda, lane_scene, search,
+                                                    lanes):
+    """Each grid row of a K1/K3 lane launch against the single-lane launch
+    on its lane's inputs (bit for bit) and the plain version (rtol 1e-4);
+    a rerun bit-identical."""
+    k1, k3, singles = _lane_case(lane_scene, search, LANE_SETS[lanes])
+    ndt_kernels.reset_launch_counts()
+    got = {"ndt_terms_gathered": ndt_kernels.ndt_terms_gathered_lanes(*k1),
+           "ndt_terms_packed": ndt_kernels.ndt_terms_packed_lanes(*k3)}
+    L = len(LANE_SETS[lanes])
+    assert ndt_kernels.LAUNCHES["ndt_terms_gathered"] == 1
+    assert ndt_kernels.LANE_ROWS == {"ndt_terms_gathered": L,
+                                     "ndt_terms_packed": L}
+    again = {"ndt_terms_gathered": ndt_kernels.ndt_terms_gathered_lanes(*k1),
+             "ndt_terms_packed": ndt_kernels.ndt_terms_packed_lanes(*k3)}
+    for name, out in got.items():
+        assert out.shape == (L, 28) and bool(torch.isfinite(out).all())
+        assert torch.equal(out.view(torch.int32),
+                           again[name].view(torch.int32))
+        for y, (a1, a3) in enumerate(singles):
+            args = a1 if name == "ndt_terms_gathered" else a3
+            one = getattr(ndt_kernels, name)(*args)
+            assert torch.equal(out[y].view(torch.int32),
+                               one.view(torch.int32)), (name, y)
+            _close(out[y], getattr(ndt_kernels, name + "_plain")(*args))
+
+
+def test_ndt_lane_kernels_one_device_operation_a_launch(cuda, lane_scene):
+    """A lane launch of K1 or K3 over 64 lanes is one device operation
+    (the warm-up call grows the stream's counters to 64 lanes; the
+    profiler session is primed, as a bare session can miss its first
+    events)."""
+    k1, k3, _ = _lane_case(lane_scene, "DIRECT7", LANE_SETS["L64"])
+    for fn, args, kernel in (
+            (ndt_kernels.ndt_terms_gathered_lanes, k1,
+             "terms_gathered_kernel"),
+            (ndt_kernels.ndt_terms_packed_lanes, k3, "terms_packed_kernel")):
+        _one_device_operation(lambda f=fn, a=args: f(*a), kernel)
+
+
+def test_fleet_fusion_four_lanes_equal_single_lanes_on_card(cuda):
+    from toyslam_tpu_torch.pipelines import fusion
+
+    xs, ms = [], []
+    for seed in (4, 6, 7, 9):
+        x, m, _ = spinning_lidar_scans(seed, 3, 16, 1024)
+        xs.append(x)
+        ms.append(m)
+    scans = torch.from_numpy(np.stack(xs)).to(cuda)
+    masks = torch.from_numpy(np.stack(ms)).to(cuda)
+    T = 3 * 20
+    rng = np.random.default_rng(5)
+    acc = torch.from_numpy(np.tile([0.0, 0.12, 9.81], (4, T, 1))
+                           + 0.03 * rng.normal(size=(4, T, 3))).to(
+        cuda, torch.float32)
+    gyro = torch.from_numpy(np.tile([0.0, 0.0, 0.04], (4, T, 1))
+                            + 0.002 * rng.normal(size=(4, T, 3))).to(
+        cuda, torch.float32)
+    dt = torch.full((4, T), 0.005, device=cuda)
+    cfg = fusion.FusionConfig(odometry=odometry.OdometryConfig(
+        work_capacity=8192))
+    ndt_kernels.reset_launch_counts()
+    fleet = fusion.fleet_fusion(scans, masks, acc, gyro, dt, cfg, chunk=4)
+    assert ndt_kernels.LANE_ROWS["ndt_terms_packed"] > 0
+    assert bool(fleet.converged.all())
+    for b in range(4):
+        one = fusion.ndt_eskf_fusion(scans[b], masks[b], acc[b], gyro[b],
+                                     dt[b], cfg)
+        assert torch.equal(fleet.poses[b], one.poses)
+        assert torch.equal(fleet.odometry.evaluations[b],
+                           one.odometry.evaluations)
+        assert float((fleet.fused_p[b] - one.fused_p).abs().max()) < 1e-5
 
 
 def _face_sources(T, xyz, leaf, n_base=256):

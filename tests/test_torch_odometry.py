@@ -139,17 +139,18 @@ def test_odometry_step_with_coarse_stage_sums_both_aligns(scans):
     cfg = _cfg(coarse_leaf=0.9)
     state = todo.odometry_init(xyzi[0], mask[0], cfg)
     seen = []
-    real = todo.ndt.ndt_align
+    real = todo.ndt.ndt_align_lanes  # the step's aligns, one lane
 
     def recording(*args):
-        seen.append(real(*args))
-        return seen[-1]
+        res = real(*args)
+        seen.append(todo.ndt.NDTResult(*(f[0] for f in res)))
+        return res
 
-    todo.ndt.ndt_align = recording
+    todo.ndt.ndt_align_lanes = recording
     try:
         _, out = todo.odometry_step(state, xyzi[1], mask[1], cfg)
     finally:
-        todo.ndt.ndt_align = real
+        todo.ndt.ndt_align_lanes = real
     coarse, fine = seen
     assert coarse.converged and fine.converged
     assert fine.evaluations == out[5] - coarse.evaluations
@@ -160,7 +161,8 @@ def test_odometry_step_with_coarse_stage_sums_both_aligns(scans):
 def test_port_imports_without_jax():
     """Every module of the port imports (the apps among them, without
     running), and an NDT, an ICP and a GICP align, the mapping app with its
-    checkpoints, ``icp_slam`` and ``ndt_eskf_fusion`` run, with JAX made
+    checkpoints, ``icp_slam``, ``ndt_eskf_fusion``, the fleet
+    (``fleet_fusion``) and ``parallel/batch.vmap_align`` run, with JAX made
     unimportable."""
     code = """
 import sys
@@ -211,6 +213,15 @@ fused = fusion.ndt_eskf_fusion(scans, smask, acc, imu,
                                cfg)
 assert fused.converged.all() and fused.fused_p.shape == (60, 3)
 assert torch.isfinite(fused.fused_p).all()
+from toyslam_tpu_torch.parallel import batch
+fleet = fusion.fleet_fusion(scans[None].expand(2, -1, -1, -1), smask[None].expand(2, -1, -1),
+                            acc[None].expand(2, -1, -1), imu[None].expand(2, -1, -1),
+                            torch.full((2, 60), 0.01, dtype=torch.float64), cfg, chunk=1)
+assert torch.equal(fleet.poses[1], fused.poses)
+pair = batch.vmap_align(scans[:2, :500], smask[:2, :500], scans[1:, :500],
+                        smask[1:, :500], ndt.NDTConfig(resolution=2.0))
+assert pair.converged.all()
+assert batch.make_mesh(device="cpu") == [torch.device("cpu")]
 assert not any(k == "jax" or k.startswith(("jax.", "toyslam_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("ok")

@@ -13,8 +13,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from toyslam_tpu_torch.ops.segment import (INT_MAX, run_bookkeeping,
-                                           seg_reduce)
+from toyslam_tpu_torch.ops.segment import (INT_MAX, run_bookkeeping_lanes,
+                                           seg_reduce_lanes, sort_lanes)
 
 # Sentinel coordinate for padded/invalid points: far outside any map.
 PAD_COORD = 1.0e9
@@ -76,25 +76,30 @@ def _full(value, like):
 
 
 def _min_max(x, y, z, mask):
+    """Per-row bounds of the valid points of [B, N] coordinates: [B, 3]."""
     big = _full(PAD_COORD, x)
-    mins = torch.stack([torch.where(mask, c, big).amin() for c in (x, y, z)])
-    maxs = torch.stack([torch.where(mask, c, -big).amax() for c in (x, y, z)])
+    mins = torch.stack([torch.where(mask, c, big).amin(-1) for c in (x, y, z)],
+                       -1)
+    maxs = torch.stack([torch.where(mask, c, -big).amax(-1)
+                        for c in (x, y, z)], -1)
     return mins, maxs
 
 
 def _voxel_ids(x, y, z, mask, inv_leaf, min_b, div):
     """Linear voxel id per point (``i + j*dx + k*dx*dy``, int32 like the
-    reference); invalid points get INT_MAX."""
-    ix = torch.floor(x * inv_leaf).to(torch.int32) - min_b[0]
-    iy = torch.floor(y * inv_leaf).to(torch.int32) - min_b[1]
-    iz = torch.floor(z * inv_leaf).to(torch.int32) - min_b[2]
-    vid = ix + iy * div[0] + iz * (div[0] * div[1])
+    reference) of [B, N] coordinates in each row's grid (min_b, div [B,
+    3]); invalid points get INT_MAX."""
+    ix = torch.floor(x * inv_leaf).to(torch.int32) - min_b[:, 0:1]
+    iy = torch.floor(y * inv_leaf).to(torch.int32) - min_b[:, 1:2]
+    iz = torch.floor(z * inv_leaf).to(torch.int32) - min_b[:, 2:3]
+    vid = ix + iy * div[:, 0:1] + iz * (div[:, 0:1] * div[:, 1:2])
     return torch.where(mask, vid, torch.full_like(vid, INT_MAX))
 
 
-def voxel_grid(x, y, z, mask, leaf_size: float):
-    """Bounding voxel grid of the valid points: ``(inv_leaf, min_b, div,
-    vid)`` with int32 ``min_b``/``div`` [3] and per-point ids."""
+def voxel_grid_lanes(x, y, z, mask, leaf_size: float):
+    """Bounding voxel grid of each row's valid points, coordinates and mask
+    [B, N]: ``(inv_leaf, min_b, div, vid)`` with int32 ``min_b``/``div``
+    [B, 3] and per-point ids [B, N]."""
     inv_leaf = _full(1.0 / leaf_size, x)
     mn, mx = _min_max(x, y, z, mask)
     min_b = torch.floor(mn * inv_leaf).to(torch.int32)
@@ -102,6 +107,38 @@ def voxel_grid(x, y, z, mask, leaf_size: float):
     div = max_b - min_b + 1
     return inv_leaf, min_b, div, _voxel_ids(x, y, z, mask, inv_leaf, min_b,
                                             div)
+
+
+def voxel_downsample_lanes(xyzi, mask, leaf_size: float,
+                           capacity: int | None = None,
+                           with_intensity: bool = True) -> PointCloud:
+    """``voxel_downsample`` of B clouds at once, ``xyzi [B, N, 4]`` and
+    ``mask [B, N]`` -> a PointCloud of ``[B, capacity, 4]`` / ``[B,
+    capacity]``: each row in its own grid, one sort and one segment sum for
+    all rows, each row bit-identical to ``voxel_downsample`` of it alone."""
+    B, N = mask.shape
+    V = N if capacity is None else capacity
+    dtype = xyzi.dtype
+    x, y, z, inten = xyzi.unbind(-1)
+    _, _, _, vid = voxel_grid_lanes(x, y, z, mask, leaf_size)
+    sorted_vid, order = sort_lanes(vid)
+    in_grid = sorted_vid != INT_MAX
+    zero = torch.zeros((), dtype=dtype, device=vid.device)
+    chans = [x, y, z] + ([inten] if with_intensity else [])
+    vals = torch.stack(
+        [in_grid.to(dtype)]
+        + [torch.where(in_grid, c.reshape(-1)[order], zero) for c in chans],
+        -1)
+    first, pos, n_unique = run_bookkeeping_lanes(sorted_vid)
+    acc, _ = seg_reduce_lanes(sorted_vid, vals, first, pos, V)  # [B, V, C]
+    valid = torch.arange(V, device=vid.device) < n_unique[:, None]
+    centroid = acc[..., 1:] / torch.clamp(acc[..., :1], min=1.0)
+    if not with_intensity:
+        centroid = torch.cat([centroid, torch.zeros_like(centroid[..., :1])],
+                             -1)
+    out = torch.where(valid[..., None], centroid, zero + PAD_COORD)
+    out[..., 3] = torch.where(valid, centroid[..., 3], zero)
+    return PointCloud(out, valid)
 
 
 def voxel_downsample(cloud: PointCloud, leaf_size: float,
@@ -112,26 +149,9 @@ def voxel_downsample(cloud: PointCloud, leaf_size: float,
     Valid lanes come first, one per occupied voxel in ascending voxel-id
     order, each the mean of its points; voxels beyond ``capacity`` (default:
     the input capacity) are dropped. ``with_intensity=False`` emits
-    intensity 0 and skips that channel's sums.
+    intensity 0 and skips that channel's sums. It is the one-row form of
+    ``voxel_downsample_lanes``.
     """
-    V = cloud.capacity if capacity is None else capacity
-    dtype = cloud.xyzi.dtype
-    mask = cloud.mask
-    x, y, z, inten = cloud.xyzi.T
-    _, _, _, vid = voxel_grid(x, y, z, mask, leaf_size)
-    sorted_vid, order = torch.sort(vid, stable=True)
-    in_grid = sorted_vid != INT_MAX
-    zero = torch.zeros((), dtype=dtype, device=vid.device)
-    chans = [x, y, z] + ([inten] if with_intensity else [])
-    vals = torch.stack([in_grid.to(dtype)]
-                       + [torch.where(in_grid, c[order], zero) for c in chans],
-                       1)
-    first, pos, n_unique = run_bookkeeping(sorted_vid)
-    acc, _ = seg_reduce(sorted_vid, vals, first, pos, V)  # [V, C]
-    valid = torch.arange(V, device=vid.device) < n_unique
-    centroid = acc[:, 1:] / torch.clamp(acc[:, :1], min=1.0)
-    if not with_intensity:
-        centroid = torch.cat([centroid, torch.zeros_like(centroid[:, :1])], 1)
-    out = torch.where(valid[:, None], centroid, zero + PAD_COORD)
-    out[:, 3] = torch.where(valid, centroid[:, 3], zero)
-    return PointCloud(out, valid)
+    out = voxel_downsample_lanes(cloud.xyzi[None], cloud.mask[None],
+                                 leaf_size, capacity, with_intensity)
+    return PointCloud(out.xyzi[0], out.mask[0])

@@ -9,6 +9,12 @@
 // result. Only an integer counter is atomic; the last block resets it to 0,
 // so a counter serves every launch of one stream (never two streams at
 // once: the caller keeps one counter a stream).
+//
+// A grid of (blocks, L) runs L sums at once, one a grid row y = blockIdx.y:
+// row y has its own counter, its own block of partial rows and its own
+// output row, so that the rows' last-block tests never mix. Row y of such a
+// launch adds exactly what a launch of (blocks, 1) adds for its inputs, in
+// the same order.
 
 #pragma once
 
@@ -52,12 +58,13 @@ __device__ __forceinline__ float block_sum_scatter(float (&v)[32],
   return s;
 }
 
-// Sums v[0..kSlots) over every thread of the grid into out[0..kSlots):
-// block sums into row blockIdx.x of partials [gridDim.x, kSlots]; the last
-// block adds rows b = tid, tid + kThreads, ... in order in each thread and
-// then sums its threads as above. partials must be 16-byte aligned.
-// *counter must be 0 at the launch and is 0 again at its end. Every thread
-// must call it; v[] is overwritten.
+// Sums v[0..kSlots) over every thread of grid row y = blockIdx.y into
+// out[y * kSlots .. + kSlots): block sums into row blockIdx.x of partials
+// [gridDim.y, gridDim.x, kSlots]; the row's last block adds its rows b =
+// tid, tid + kThreads, ... in order in each thread and then sums its
+// threads as above. partials must be 16-byte aligned. counter[y] must be 0
+// at the launch and is 0 again at its end. Every thread must call it; v[]
+// is overwritten.
 template <int kThreads, int kSlots>
 __device__ __forceinline__ void grid_sum(float (&v)[32],
                                          float* __restrict__ partials,
@@ -68,6 +75,9 @@ __device__ __forceinline__ void grid_sum(float (&v)[32],
   __shared__ float red[kThreads / 32][32];
   __shared__ bool last;
   const int tid = threadIdx.x;
+  partials += static_cast<size_t>(blockIdx.y) * gridDim.x * kSlots;
+  out += static_cast<size_t>(blockIdx.y) * kSlots;
+  counter += blockIdx.y;
   const float s = block_sum_scatter<kThreads>(v, red);
   if (tid < kSlots) {
     partials[static_cast<size_t>(blockIdx.x) * kSlots + tid] = s;

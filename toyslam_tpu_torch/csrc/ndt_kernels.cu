@@ -38,6 +38,14 @@
 //   rows. No float atomics: reruns are bit-identical. A grid-stride loop
 //   over at most one wave of blocks (the wrapper caps them) keeps the last
 //   block's rows few.
+// - A lane axis (the fleet; JAX's vmap of the pallas_call gives its grid a
+//   batch axis): a grid of (blocks, L) evaluates L lanes in one launch.
+//   Grid row y reads lane lane_ids[y] (y itself without lane_ids) of the
+//   lane-major inputs, its own params row, and writes output row y through
+//   its own grid_sum counter and partial rows. Each row keeps the
+//   single-lane launch's blocks, grid-stride split and fixed-order sum, so
+//   lane b of a batched launch is bit-identical to a launch with L = 1 on
+//   lane b's inputs; the single-lane wrappers launch L = 1.
 //
 // The hash must pick the voxel that the eager-torch plain hash picks, also
 // for a point within an ulp of a voxel face. The transform is therefore
@@ -318,9 +326,19 @@ terms_gathered_kernel(const float* __restrict__ params,
                       const float4* __restrict__ table,
                       const int* __restrict__ min_b,
                       const int* __restrict__ div,
-                      const int* __restrict__ offsets, float* partials,
+                      const int* __restrict__ offsets,
+                      const int* __restrict__ lane_ids, float* partials,
                       float* out, unsigned int* counter, int n, int K,
                       float inv_leaf, unsigned int cap_mask) {
+  // Grid row y evaluates lane b: params row y, lane b's points, mask, table
+  // [cap, 16] and grid.
+  const size_t b = lane_ids ? lane_ids[blockIdx.y] : blockIdx.y;
+  params += blockIdx.y * kParams;
+  xyz += b * 3 * n;
+  mask += b * n;
+  table += b * (static_cast<size_t>(cap_mask) + 1) * 4;
+  min_b += 3 * b;
+  div += 3 * b;
   __shared__ float P[kParams];
   __shared__ int box[6];  // the map's min_b, div
   __shared__ int off[3 * kMaxK];
@@ -409,8 +427,14 @@ gather_repack_kernel(const float4* __restrict__ table,
 __global__ void __launch_bounds__(kThreads)
 terms_packed_kernel(const float* __restrict__ params,
                     const float* __restrict__ xyz,
-                    const float* __restrict__ st, float* partials,
+                    const float* __restrict__ st,
+                    const int* __restrict__ lane_ids, float* partials,
                     float* out, unsigned int* counter, int n, int K) {
+  // Grid row y evaluates lane b: params row y, lane b's points and stats.
+  const size_t b = lane_ids ? lane_ids[blockIdx.y] : blockIdx.y;
+  params += blockIdx.y * kParams;
+  xyz += b * 3 * n;
+  st += b * 10 * static_cast<size_t>(K) * n;
   __shared__ float P[kParams];
   __shared__ unsigned short queues[kWarps][kQueue];
   for (int j = threadIdx.x; j < kParams; j += kThreads) P[j] = params[j];
@@ -452,20 +476,23 @@ inline cudaStream_t as_stream(void* stream) {
 
 }  // namespace
 
+// K1 over L lanes (lane_ids may be null: grid row y is lane y).
 extern "C" int ndt_terms_gathered(const void* params, const void* xyz,
                                   const void* mask, const void* table,
                                   const void* min_b, const void* div,
-                                  const void* offsets, void* partials,
-                                  void* out, void* counter, long long n,
-                                  long long K, float inv_leaf,
+                                  const void* offsets, const void* lane_ids,
+                                  void* partials, void* out, void* counter,
+                                  long long n, long long K, float inv_leaf,
                                   long long cap_mask, long long blocks,
-                                  void* stream) {
-  terms_gathered_kernel<<<static_cast<int>(blocks), kThreads, 0,
-                          as_stream(stream)>>>(
+                                  long long lanes, void* stream) {
+  const dim3 grid(static_cast<unsigned int>(blocks),
+                  static_cast<unsigned int>(lanes));
+  terms_gathered_kernel<<<grid, kThreads, 0, as_stream(stream)>>>(
       static_cast<const float*>(params), static_cast<const float*>(xyz),
       static_cast<const unsigned char*>(mask),
       static_cast<const float4*>(table), static_cast<const int*>(min_b),
       static_cast<const int*>(div), static_cast<const int*>(offsets),
+      static_cast<const int*>(lane_ids),
       static_cast<float*>(partials), static_cast<float*>(out),
       static_cast<unsigned int*>(counter), static_cast<int>(n),
       static_cast<int>(K), inv_leaf, static_cast<unsigned int>(cap_mask));
@@ -501,14 +528,18 @@ extern "C" int ndt_gather_repack(const void* table, const void* h,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3 over L lanes (lane_ids may be null: grid row y is lane y).
 extern "C" int ndt_terms_packed(const void* params, const void* xyz,
-                                const void* st, void* partials, void* out,
-                                void* counter, long long n, long long K,
-                                long long blocks, void* stream) {
-  terms_packed_kernel<<<static_cast<int>(blocks), kThreads, 0,
-                        as_stream(stream)>>>(
+                                const void* st, const void* lane_ids,
+                                void* partials, void* out, void* counter,
+                                long long n, long long K, long long blocks,
+                                long long lanes, void* stream) {
+  const dim3 grid(static_cast<unsigned int>(blocks),
+                  static_cast<unsigned int>(lanes));
+  terms_packed_kernel<<<grid, kThreads, 0, as_stream(stream)>>>(
       static_cast<const float*>(params), static_cast<const float*>(xyz),
-      static_cast<const float*>(st), static_cast<float*>(partials),
+      static_cast<const float*>(st), static_cast<const int*>(lane_ids),
+      static_cast<float*>(partials),
       static_cast<float*>(out), static_cast<unsigned int*>(counter),
       static_cast<int>(n), static_cast<int>(K));
   return static_cast<int>(cudaGetLastError());

@@ -71,33 +71,57 @@ def magnitude_err(got, want, terms):
     return float((diff / scale.clamp_min(1e-300)).max())
 
 
+def lane_row_args(name, args, y, b=None):
+    """The one-lane arguments behind row y of a K1 or K3 lane call
+    (``ndt_terms_{gathered,packed}_lanes``): its params row and lane
+    ``b = lane_ids[y]``'s operands (``b`` read from the call's lane ids
+    unless given)."""
+    if b is None:
+        b = int(args[-1][y])
+    if name == "ndt_terms_packed":
+        params, xyz, stats10, _ = args
+        return params[y], xyz[b], stats10[b]
+    params, xyz, mask, table, min_b, div, inv_leaf, offsets, _ = args
+    return (params[y], xyz[b], mask[b], table[b], min_b[b], div[b], inv_leaf,
+            offsets)
+
+
 @contextlib.contextmanager
 def plain_route(errors=None, magnitudes=False):
-    """K1-K3's wrappers in ``ops.ndt_kernels`` replaced by their plain
+    """K1-K3's wrappers in ``ops.ndt_kernels``, one-lane and lane (the
+    odometry's aligns are lockstep aligns), replaced by their plain
     versions while the block runs. With ``errors`` (a list), every K1 and
-    K3 evaluation also runs the kernel on the same inputs and appends
-    ``(name, relative error of the kernel's sums, error relative to the
-    terms' magnitudes or None)``: the kernels held to the plain versions
-    along the plain route's own path. ``magnitudes`` computes the last,
-    at the cost of a second plain evaluation."""
-    names = ("ndt_terms_gathered", "ndt_gather_repack", "ndt_terms_packed")
+    K3 evaluation (a row of a lane call is one) also runs the kernel on the
+    same inputs and appends ``(name, relative error of the kernel's sums,
+    error relative to the terms' magnitudes or None)``: the kernels held to
+    the plain versions along the plain route's own path. ``magnitudes``
+    computes the last, at the cost of a second plain evaluation."""
+    names = ("ndt_terms_gathered", "ndt_gather_repack", "ndt_terms_packed",
+             "ndt_terms_gathered_lanes", "ndt_terms_packed_lanes")
     kernel = {name: getattr(ndt_kernels, name) for name in names}
     plain = {name: getattr(ndt_kernels, name + "_plain") for name in names}
 
     def checked(name):
+        one = name.removesuffix("_lanes")
+
         def run(*args):
             want = plain[name](*args)
             got = kernel[name](*args)
-            mag = (magnitude_err(got, want, _pair_terms(name, args))
-                   if magnitudes else None)
-            errors.append((name, terms_rel_err(got, want), mag))
+            rows = ([(args, got, want)] if one == name else
+                    [(lane_row_args(one, args, y), got[y], want[y])
+                     for y in range(len(want))])
+            for a, g, w in rows:
+                mag = (magnitude_err(g, w, _pair_terms(one, a))
+                       if magnitudes else None)
+                errors.append((one, terms_rel_err(g, w), mag))
             return want
         return run
 
     patched = dict(plain)
     if errors is not None:
-        for name in ("ndt_terms_gathered", "ndt_terms_packed"):
-            patched[name] = checked(name)
+        for name in names:
+            if name != "ndt_gather_repack":
+                patched[name] = checked(name)
     try:
         for name, fn in patched.items():
             setattr(ndt_kernels, name, fn)

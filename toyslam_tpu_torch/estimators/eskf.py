@@ -9,7 +9,11 @@ v(3), q(4), b_a(3), b_g(3)] with a 15-dim error state, IMU predict
 coupling (see :func:`predict`).
 
 ``eskf_run`` is JAX's ``lax.scan`` as a host loop over ticks with the
-state on the log's device. No tick waits on the device: a non-positive
+state on the log's device. Every function also takes a leading lane axis
+(JAX's ``vmap``; the fleet): a state, a sample and a log of B lanes
+(``[B, 3]``, ``[B, 15, 15]``, ``dt`` [B]; a log ``[B, T, ...]``) run
+one tick's operations for all lanes at once. No tick waits on the
+device: a non-positive
 ``dt`` and an invalid measurement select the old state with
 ``torch.where`` (no Python branch on a device value), the 3x3 innovation
 inverse is the adjugate (``core/se3.inv3``; ``torch.linalg.inv`` checks
@@ -49,14 +53,31 @@ class ESKFState(NamedTuple):
 
 
 def init_state(dtype=torch.float32, params: ESKFParams = ESKFParams(),
-               device="cuda") -> ESKFState:
+               device="cuda", lanes: int | None = None) -> ESKFState:
     """At rest at the origin, identity attitude, zero biases, ``P =
-    init_cov I``; on the card unless ``device`` names another."""
+    init_cov I``; on the card unless ``device`` names another; with
+    ``lanes`` = B every field has a leading B."""
     eye = torch.eye(15, dtype=dtype, device=device)
     zero = eye[0, 1:4] * 0.0
-    return ESKFState(p=zero, v=zero.clone(), q=eye[0, :4].clone(),
-                     ba=zero.clone(), bg=zero.clone(),
-                     P=eye * params.init_cov)
+    s = ESKFState(p=zero, v=zero.clone(), q=eye[0, :4].clone(),
+                  ba=zero.clone(), bg=zero.clone(), P=eye * params.init_cov)
+    if lanes is None:
+        return s
+    return ESKFState(*(f.expand(lanes, *f.shape).clone() for f in s))
+
+
+def _mv(A, x):
+    """A [..., m, n] @ x [..., n]: ``A @ x`` for one lane, a batched
+    product over lanes."""
+    return A @ x if x.dim() == 1 else (A @ x[..., None])[..., 0]
+
+
+def _where(valid, a, b):
+    """``torch.where`` with ``valid`` (0-d, or [B] over lanes) broadcast
+    over the trailing dims of a field."""
+    return torch.where(valid.reshape(valid.shape + (1,) * (a.dim()
+                                                           - valid.dim())),
+                       a, b)
 
 
 class _Step:
@@ -87,53 +108,56 @@ class _Step:
 
     def predict(self, s: ESKFState, acc, gyro, dt) -> ESKFState:
         dt = self.dt(dt, s.p)
+        dtv, dtm = dt[..., None], dt[..., None, None]  # for vectors, matrices
         acc_u = acc - s.ba
         gyro_u = gyro - s.bg
-        omega = gyro_u * dt
-        theta = torch.linalg.norm(omega)
+        omega = gyro_u * dtv
+        theta = torch.linalg.norm(omega, dim=-1)
         small = theta <= 1e-6
-        axis = omega / torch.where(small, torch.ones_like(theta), theta)
-        dq = torch.where(small, self.q_ident,
+        axis = omega / torch.where(small, torch.ones_like(theta),
+                                   theta)[..., None]
+        dq = torch.where(small[..., None], self.q_ident,
                          se3.quat_from_axis_angle(axis, theta))
         q_new = se3.quat_normalize(se3.quat_multiply(s.q, dq))
 
         R = se3.quat_to_rot(s.q)
-        a_world = R @ acc_u - self.gravity
-        v_new = s.v + a_world * dt
-        p_new = s.p + v_new * dt + 0.5 * a_world * dt * dt
+        a_world = _mv(R, acc_u) - self.gravity
+        v_new = s.v + a_world * dtv
+        p_new = s.p + v_new * dtv + 0.5 * a_world * dtv * dtv
 
         # Error-state transition F (``computeF``, ``:138-156``) with the
         # JAX package's correction: the velocity/attitude block is
         # -R [acc_body_unbiased]x dt for this filter's local attitude
         # error, not the reference's -R [a_world]x dt (``:146``).
-        F = self.eye15.clone()
-        F[0:3, 3:6] = self.eye3 * dt
-        F[3:6, 6:9] = -(R @ se3.skew(acc_u)) * dt
-        F[3:6, 9:12] = -R * dt
-        F[6:9, 6:9] = se3.so3_exp(omega).T
-        F[6:9, 12:15] = -self.eye3 * dt
-        dt2 = dt * dt
-        q_diag = self.q4 * (dt2 * dt2) + self.q2 * dt2 + self.q1 * dt
-        P_new = F @ s.P @ F.T + torch.diag(q_diag)
+        F = self.eye15.expand(s.P.shape).clone()
+        F[..., 0:3, 3:6] = self.eye3 * dtm
+        F[..., 3:6, 6:9] = -(R @ se3.skew(acc_u)) * dtm
+        F[..., 3:6, 9:12] = -R * dtm
+        F[..., 6:9, 6:9] = se3.so3_exp(omega).mT
+        F[..., 6:9, 12:15] = -self.eye3 * dtm
+        dt2 = dtv * dtv
+        q_diag = self.q4 * (dt2 * dt2) + self.q2 * dt2 + self.q1 * dtv
+        P_new = F @ s.P @ F.mT + torch.diag_embed(q_diag)
 
         valid = dt > 0  # the reference returns early on dt <= 0
-        return ESKFState(p=torch.where(valid, p_new, s.p),
-                         v=torch.where(valid, v_new, s.v),
-                         q=torch.where(valid, q_new, s.q),
+        return ESKFState(p=_where(valid, p_new, s.p),
+                         v=_where(valid, v_new, s.v),
+                         q=_where(valid, q_new, s.q),
                          ba=s.ba, bg=s.bg,
-                         P=torch.where(valid, P_new, s.P))
+                         P=_where(valid, P_new, s.P))
 
     def update(self, s: ESKFState, z, valid=True) -> ESKFState:
         # S = H P H^T + R = P[0:3, 0:3] + R; K = P H^T S^-1
-        K = s.P[:, 0:3] @ se3.inv3(s.P[0:3, 0:3] + self.r_meas)  # [15, 3]
-        dx = K @ (z - s.p)  # [15]
-        new = ESKFState(p=s.p + dx[0:3], v=s.v + dx[3:6],
-                        q=se3.quat_boxplus(s.q, dx[6:9]),
-                        ba=s.ba + dx[9:12], bg=s.bg + dx[12:15],
-                        P=s.P - K @ s.P[0:3])  # (I - K H) P
+        K = s.P[..., :, 0:3] @ se3.inv3(s.P[..., 0:3, 0:3]
+                                        + self.r_meas)  # [15, 3]
+        dx = _mv(K, z - s.p)  # [15]
+        new = ESKFState(p=s.p + dx[..., 0:3], v=s.v + dx[..., 3:6],
+                        q=se3.quat_boxplus(s.q, dx[..., 6:9]),
+                        ba=s.ba + dx[..., 9:12], bg=s.bg + dx[..., 12:15],
+                        P=s.P - K @ s.P[..., 0:3, :])  # (I - K H) P
         if valid is True:
             return new
-        return ESKFState(*(torch.where(valid, a, b) for a, b in zip(new, s)))
+        return ESKFState(*(_where(valid, a, b) for a, b in zip(new, s)))
 
 
 def predict(state: ESKFState, acc, gyro, dt,
@@ -167,16 +191,20 @@ def eskf_run(log: ESKFLog, state: ESKFState | None = None,
              params: ESKFParams = ESKFParams()):
     """Fuse a whole log, predict then update at every tick; returns
     ``(final_state, {"p": [T, 3], "v": [T, 3], "q": [T, 4]})`` on the log's
-    device. Makes no host synchronisation."""
+    device. A log of B lanes (``dt [B, T]``, ``acc [B, T, 3]``, ...) runs
+    them together and returns ``[B, T, ...]``. Makes no host
+    synchronisation."""
     dtype, dev = log.acc.dtype, log.acc.device
-    s = init_state(dtype, params, dev) if state is None else state
+    lanes = log.dt.shape[0] if log.dt.dim() == 2 else None
+    s = init_state(dtype, params, dev, lanes) if state is None else state
     step = _Step(params, dtype, dev)
     ps, vs, qs = [], [], []
-    for i in range(log.dt.shape[0]):
-        s = step.predict(s, log.acc[i], log.gyro[i], log.dt[i])
-        s = step.update(s, log.meas[i], log.meas_valid[i])
+    for i in range(log.dt.shape[-1]):
+        s = step.predict(s, log.acc[..., i, :], log.gyro[..., i, :],
+                         log.dt[..., i])
+        s = step.update(s, log.meas[..., i, :], log.meas_valid[..., i])
         ps.append(s.p)
         vs.append(s.v)
         qs.append(s.q)
-    return s, {"p": torch.stack(ps), "v": torch.stack(vs),
-               "q": torch.stack(qs)}
+    return s, {"p": torch.stack(ps, -2), "v": torch.stack(vs, -2),
+               "q": torch.stack(qs, -2)}

@@ -26,8 +26,9 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-# The grid sum's last-block counter of each (device, stream): two streams
-# never share one, and each launch leaves its counter at 0.
+# The grid sum's last-block counters of each (device, stream), one a grid
+# row: two streams never share one, and each launch leaves its counters
+# at 0.
 _counters = {}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -132,17 +133,24 @@ def launch(fn, *args, device=None):
                            f"{err}")
 
 
-def grid_sum_buffers(device, n_out, slots, blocks):
-    """The sums ``out`` [n_out], the blocks' partial rows [blocks, slots]
-    and the last-block counter of one launch of a ``grid_sum`` kernel with
-    rows of ``slots`` floats on the current stream. ``out`` and the rows
-    share one allocation: the kernel writes ``slots`` sums at ``out``'s
-    address, and the rows start 16-byte aligned after them."""
+def grid_sum_buffers(device, n_out, slots, blocks, lanes=None):
+    """The sums ``out``, the blocks' partial rows and the last-block
+    counters of one launch of a ``grid_sum`` kernel with rows of ``slots``
+    floats on the current stream. Without ``lanes``: ``out`` [n_out],
+    partials [blocks, slots] and one counter; with ``lanes`` = L (a grid of
+    (blocks, L)): ``out`` [L, n_out], partials [L, blocks, slots] and L
+    counters, one a grid row. ``out`` and the rows share one allocation:
+    the kernel writes ``slots`` sums a grid row at ``out``'s rows, and the
+    partial rows start 16-byte aligned after them. The counters of a stream
+    are zeroed once, grow to the widest launch and are left at 0 by every
+    launch."""
+    L = 1 if lanes is None else lanes
     key = (device.index, torch.cuda.current_stream(device).cuda_stream)
     counter = _counters.get(key)
-    if counter is None:  # zeroed once; every launch leaves it at 0
-        counter = _counters[key] = torch.zeros(1, dtype=torch.int32,
+    if counter is None or counter.numel() < L:  # a fleet's 64 lanes or more
+        counter = _counters[key] = torch.zeros(max(L, 64), dtype=torch.int32,
                                                device=device)
-    buf = torch.empty(slots * (blocks + 1), dtype=torch.float32,
+    buf = torch.empty(slots * L * (blocks + 1), dtype=torch.float32,
                       device=device)
-    return buf[:n_out], buf[slots:], counter
+    out = buf[:slots * L].view(L, slots)[:, :n_out]
+    return (out[0] if lanes is None else out), buf[slots * L:], counter

@@ -16,6 +16,18 @@ Layouts (offset-major, as in the JAX package):
   min_b, div [3] int32, the map's grid; offsets [K, 3] int32 (DIRECT1/7/27);
   h, nvid [K*N] int32 and okm [K*N] bool from the neighbour hash;
   stats10 [10, K*N]: mean(3), icov sym(6), gate.
+
+The fleet's lane axis (``*_lanes``, what JAX's ``vmap`` of a
+``pallas_call`` gives its grid): B lanes' inputs stacked lane-major (xyz
+[B, 3, N], mask [B, N], table [B, cap, 16], min_b and div [B, 3], stats10
+[B, 10, K*N]), params [L, 83] and ``lane_ids`` [L] int32: row y of the
+output [L, 28] is lane ``lane_ids[y]`` evaluated at params row y. One
+launch evaluates the L lanes still running; lanes not named cost nothing.
+K1 and K3 run one kernel body for both: the single-lane wrappers launch
+it with L = 1, and lane b of a batched launch is bit-identical to the
+single-lane launch on lane b's inputs. A lane launch counts once under
+the kernel's own ``LAUNCHES`` key, whatever L; ``LANE_ROWS`` counts the
+lanes those launches evaluated.
 """
 
 from __future__ import annotations
@@ -42,14 +54,17 @@ LANES = 2
 # launches its kernel and nowhere else.
 LAUNCHES = {"ndt_terms_gathered": 0, "ndt_gather_repack": 0,
             "ndt_terms_packed": 0}
+# Lanes evaluated by the lane launches of K1 and K3 since the last reset.
+LANE_ROWS = {"ndt_terms_gathered": 0, "ndt_terms_packed": 0}
 
 SOURCE = _cuda.CSRC / "ndt_kernels.cu"
 _lib = None
 
 
 def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LANE_ROWS):
+        for k in counts:
+            counts[k] = 0
 
 
 # --------------------------------------------------------------------------
@@ -84,6 +99,32 @@ def ndt_neighbor_hash_plain(params, xyz, mask, min_b, div, cap, inv_leaf,
     ok = in_b & (nvid >= 0)
     h = torch.where(ok, nvid & (cap - 1), 0)
     return h, nvid, (ok.view(K, N) & mask).reshape(K * N)
+
+
+def ndt_neighbor_hash_lanes_plain(params, xyz, mask, min_b, div, cap,
+                                  inv_leaf, offsets):
+    """``ndt_neighbor_hash_plain`` of L lanes at once: params [L, 83], xyz
+    [L, 3, N], mask [L, N], min_b and div [L, 3] -> h, nvid, okm [L, K*N].
+    The same operations, broadcast over the lanes, so each lane is
+    bit-identical to the single-lane hash."""
+    L, K, N = xyz.shape[0], offsets.shape[0], xyz.shape[2]
+    T = params[:, 2:14]
+    sx, sy, sz = xyz.unbind(1)
+    inv = torch.tensor(inv_leaf, dtype=xyz.dtype)
+    nijk = []
+    for a in range(3):
+        t = (T[:, 4 * a, None] * sx + T[:, 4 * a + 1, None] * sy
+             + T[:, 4 * a + 2, None] * sz + T[:, 4 * a + 3, None])
+        cell = torch.floor(t * inv).to(torch.int32) - min_b[:, a, None]
+        nijk.append((cell[:, None, :] + offsets[None, :, a, None])
+                    .reshape(L, K * N))
+    d0, d1, d2 = (div[:, a, None] for a in range(3))
+    in_b = ((nijk[0] >= 0) & (nijk[0] < d0) & (nijk[1] >= 0)
+            & (nijk[1] < d1) & (nijk[2] >= 0) & (nijk[2] < d2))
+    nvid = nijk[0] + nijk[1] * d0 + nijk[2] * (d0 * d1)
+    ok = in_b & (nvid >= 0)
+    h = torch.where(ok, nvid & (cap - 1), 0)
+    return h, nvid, (ok.view(L, K, N) & mask[:, None, :]).reshape(L, K * N)
 
 
 def ndt_gather_repack_plain(table, h, nvid, okm):
@@ -197,6 +238,23 @@ def ndt_terms_gathered_plain(params, xyz, mask, table, min_b, div, inv_leaf,
                                   ndt_gather_repack_plain(table, *hashed))
 
 
+def ndt_terms_packed_lanes_plain(params, xyz, stats10, lane_ids):
+    """K3's plain version over lanes: row y is ``ndt_terms_packed_plain``
+    of lane ``lane_ids[y]`` at params row y, [L, 28]."""
+    return torch.stack([ndt_terms_packed_plain(params[y], xyz[b], stats10[b])
+                        for y, b in enumerate(lane_ids.tolist())])
+
+
+def ndt_terms_gathered_lanes_plain(params, xyz, mask, table, min_b, div,
+                                   inv_leaf, offsets, lane_ids):
+    """K1's plain version over lanes: row y is ``ndt_terms_gathered_plain``
+    of lane ``lane_ids[y]`` at params row y, [L, 28]."""
+    return torch.stack([
+        ndt_terms_gathered_plain(params[y], xyz[b], mask[b], table[b],
+                                 min_b[b], div[b], inv_leaf, offsets)
+        for y, b in enumerate(lane_ids.tolist())])
+
+
 # --------------------------------------------------------------------------
 # Build and launch
 # --------------------------------------------------------------------------
@@ -213,12 +271,13 @@ def _library():
     if _lib is None:
         p, i64, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
         _lib = _cuda.load(SOURCE, {
-            "ndt_terms_gathered": [p, p, p, p, p, p, p, p, p, p, i64, i64,
-                                   f32, i64, i64, p],
+            "ndt_terms_gathered": [p, p, p, p, p, p, p, p, p, p, p, i64,
+                                   i64, f32, i64, i64, i64, p],
             "ndt_neighbor_hash": [p, p, p, p, p, p, p, p, p, i64, i64, f32,
                                   i64, p],
             "ndt_gather_repack": [p, p, p, p, p, i64, p],
-            "ndt_terms_packed": [p, p, p, p, p, p, i64, i64, i64, p],
+            "ndt_terms_packed": [p, p, p, p, p, p, p, i64, i64, i64, i64,
+                                 p],
         })
     return _lib
 
@@ -305,23 +364,69 @@ def ndt_gather_repack(table, h, nvid, okm):
     return out
 
 
-def ndt_terms_packed(params, xyz, stats10):
-    """K3: the 28 NDT sums from ``stats10 [10, K*N]``, in one launch."""
-    if _on_cpu(params, xyz, stats10):
-        return ndt_terms_packed_plain(params, xyz, stats10)
-    n = _check_points(params, xyz)
-    kn = stats10.shape[1]
-    _cuda.check("stats10", stats10, torch.float32, (10, kn))
+def _check_lanes(params, lane_ids):
+    """The lane operands: params [L, 83] and lane ids [L] in [0, B); returns
+    L. The ids are not read back from the card (no host sync): the caller
+    names lanes that exist."""
+    L = lane_ids.shape[0]
+    _cuda.check("params", params, torch.float32, (L, N_PARAMS))
+    _cuda.check("lane_ids", lane_ids, torch.int32, (L,))
+    if not 1 <= L <= 65535:  # gridDim.y
+        raise ValueError(f"{L} lanes: the kernels take 1 to 65535")
+    return L
+
+
+def _terms_packed(params, xyz, stats10, lane_ids, L):
+    """K3 over L grid rows (lane_ids None: the single lane)."""
+    B, n = xyz.shape[0], xyz.shape[2]
+    _cuda.check("xyz", xyz, torch.float32, (B, 3, n))
+    if n == 0 or n * 8 >= 2**31:
+        raise ValueError(f"{n} points: the kernels take 1 to 2**28 - 1")
+    kn = stats10.shape[2]
+    _cuda.check("stats10", stats10, torch.float32, (B, 10, kn))
     if kn % n or kn >= 2**31 or kn // n > MAX_OFFSETS:
         raise ValueError(f"{kn} pairs are not K <= {MAX_OFFSETS} x {n} "
                          f"points under 2**31")
     blocks = _blocks(n)
     out, partials, counter = _cuda.grid_sum_buffers(
-        xyz.device, N_TERMS, N_TERMS, blocks)
-    _cuda.launch(_library().ndt_terms_packed, params, xyz, stats10, partials,
-                 out, counter, n, kn // n, blocks)
+        xyz.device, N_TERMS, N_TERMS, blocks, L)
+    _cuda.launch(_library().ndt_terms_packed, params, xyz, stats10, lane_ids,
+                 partials, out, counter, n, kn // n, blocks, L)
     LAUNCHES["ndt_terms_packed"] += 1
     return out
+
+
+def _terms_gathered(params, xyz, mask, table, min_b, div, inv_leaf, offsets,
+                    lane_ids, L):
+    """K1 over L grid rows (lane_ids None: the single lane)."""
+    B, n = xyz.shape[0], xyz.shape[2]
+    _cuda.check("xyz", xyz, torch.float32, (B, 3, n))
+    if n == 0 or n * 8 >= 2**31:
+        raise ValueError(f"{n} points: the kernels take 1 to 2**28 - 1")
+    cap = table.shape[1]
+    _cuda.check("table", table, torch.float32, (B, cap, 16))
+    if table.data_ptr() % 16:
+        raise ValueError("table: rows must be 16-byte aligned")
+    _cuda.check("mask", mask, torch.bool, (B, n))
+    _cuda.check("min_b", min_b, torch.int32, (B, 3))
+    _cuda.check("div", div, torch.int32, (B, 3))
+    K = _check_hash(mask[0], min_b[0], div[0], cap, offsets, n)
+    blocks = _blocks(n)
+    out, partials, counter = _cuda.grid_sum_buffers(
+        xyz.device, N_TERMS, N_TERMS, blocks, L)
+    _cuda.launch(_library().ndt_terms_gathered, params, xyz, mask, table,
+                 min_b, div, offsets, lane_ids, partials, out, counter, n, K,
+                 inv_leaf, cap - 1, blocks, L)
+    LAUNCHES["ndt_terms_gathered"] += 1
+    return out
+
+
+def ndt_terms_packed(params, xyz, stats10):
+    """K3: the 28 NDT sums from ``stats10 [10, K*N]``, in one launch."""
+    if _on_cpu(params, xyz, stats10):
+        return ndt_terms_packed_plain(params, xyz, stats10)
+    _cuda.check("params", params, torch.float32, (N_PARAMS,))
+    return _terms_packed(params, xyz[None], stats10[None], None, 1)[0]
 
 
 def ndt_terms_gathered(params, xyz, mask, table, min_b, div, inv_leaf,
@@ -332,15 +437,34 @@ def ndt_terms_gathered(params, xyz, mask, table, min_b, div, inv_leaf,
     if _on_cpu(params, xyz, mask, table, min_b, div, offsets):
         return ndt_terms_gathered_plain(params, xyz, mask, table, min_b, div,
                                         inv_leaf, offsets)
-    n = _check_points(params, xyz)
-    _check_table(table)
-    cap = table.shape[0]
-    K = _check_hash(mask, min_b, div, cap, offsets, n)
-    blocks = _blocks(n)
-    out, partials, counter = _cuda.grid_sum_buffers(
-        xyz.device, N_TERMS, N_TERMS, blocks)
-    _cuda.launch(_library().ndt_terms_gathered, params, xyz, mask, table,
-                 min_b, div, offsets, partials, out, counter, n, K, inv_leaf,
-                 cap - 1, blocks)
-    LAUNCHES["ndt_terms_gathered"] += 1
+    _cuda.check("params", params, torch.float32, (N_PARAMS,))
+    return _terms_gathered(params, xyz[None], mask[None], table[None],
+                           min_b[None], div[None], inv_leaf, offsets, None,
+                           1)[0]
+
+
+def ndt_terms_packed_lanes(params, xyz, stats10, lane_ids):
+    """K3 over lanes: ``[L, 28]``, row y the sums of lane ``lane_ids[y]``
+    (stats10 [B, 10, K*N], xyz [B, 3, N]) at params row y, in one launch."""
+    if _on_cpu(params, xyz, stats10, lane_ids):
+        return ndt_terms_packed_lanes_plain(params, xyz, stats10, lane_ids)
+    L = _check_lanes(params, lane_ids)
+    out = _terms_packed(params, xyz, stats10, lane_ids, L)
+    LANE_ROWS["ndt_terms_packed"] += L
+    return out
+
+
+def ndt_terms_gathered_lanes(params, xyz, mask, table, min_b, div, inv_leaf,
+                             offsets, lane_ids):
+    """K1 over lanes: ``[L, 28]``, row y the sums of lane ``lane_ids[y]``
+    (xyz [B, 3, N], mask [B, N], table [B, cap, 16], min_b and div [B, 3])
+    at params row y, in one launch."""
+    if _on_cpu(params, xyz, mask, table, min_b, div, offsets, lane_ids):
+        return ndt_terms_gathered_lanes_plain(params, xyz, mask, table, min_b,
+                                              div, inv_leaf, offsets,
+                                              lane_ids)
+    L = _check_lanes(params, lane_ids)
+    out = _terms_gathered(params, xyz, mask, table, min_b, div, inv_leaf,
+                          offsets, lane_ids, L)
+    LANE_ROWS["ndt_terms_gathered"] += L
     return out

@@ -16,6 +16,13 @@ JAX's ``lax.scan`` is a Python loop over ``odometry_step`` /
 on the host. Both steps return JAX's tuple ``(pose, T, converged,
 iterations, trans_probability, evaluations, gathers)`` with the port's
 host-sync count as an eighth element.
+
+The steps are written over lanes: ``ndt_odometry_lanes`` runs B
+independent sequences at once (JAX's ``vmap`` of ``odometry_step``), per
+scan one lane-batched downsample, one lane-batched map build and one
+lockstep align (``ndt.ndt_align_lanes``), coarse-to-fine a second one.
+``ndt_odometry`` and ``odometry_step`` are its one-lane case; a lane's
+outputs do not depend on the other lanes, bit for bit.
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ from typing import NamedTuple
 import torch
 
 from toyslam_tpu_torch.core.pointcloud import (PointCloud, pad_to,
-                                               voxel_downsample)
+                                               voxel_downsample,
+                                               voxel_downsample_lanes)
 from toyslam_tpu_torch.registration import ndt
 
 
@@ -101,54 +109,130 @@ class MappingState(NamedTuple):
     map_cloud: PointCloud
 
 
-def _downsample(xyzi, mask, cfg: OdometryConfig) -> PointCloud:
-    return voxel_downsample(PointCloud(xyzi, mask), cfg.scan_leaf,
-                            cfg.work_capacity,
-                            with_intensity=cfg.keep_intensity)
-
-
 def _for_mapping(config: OdometryConfig) -> OdometryConfig:
     """The global map averages intensity like the reference's VoxelGrid,
     whatever the odometry default."""
     return config._replace(keep_intensity=True)
 
 
-def odometry_step(state: OdometryState, xyzi, mask,
-                  config: OdometryConfig = OdometryConfig()):
-    """Process one scan; returns ``(new_state, (pose, pairwise_T,
-    converged, iterations, trans_probability, evaluations, gathers,
-    host_syncs))``, JAX's tuple plus the host syncs of the aligns."""
-    cur_ds = _downsample(xyzi, mask, config)
-    m = ndt.build_ndt_map(state.prev_ds, config.ndt)
+def _downsample(xyzi, mask, cfg: OdometryConfig) -> PointCloud:
+    return voxel_downsample(PointCloud(xyzi, mask), cfg.scan_leaf,
+                            cfg.work_capacity,
+                            with_intensity=cfg.keep_intensity)
+
+
+def _downsample_lanes(xyzi, mask, cfg: OdometryConfig) -> PointCloud:
+    return voxel_downsample_lanes(xyzi, mask, cfg.scan_leaf,
+                                  cfg.work_capacity,
+                                  with_intensity=cfg.keep_intensity)
+
+
+def odometry_init_lanes(first_xyzi, first_mask,
+                        config: OdometryConfig = OdometryConfig()
+                        ) -> OdometryState:
+    """``odometry_init`` of B lanes, ``[B, N, 4]`` / ``[B, N]``: a state
+    whose fields have a leading B."""
+    eye = torch.eye(4, dtype=first_xyzi.dtype).expand(
+        first_xyzi.shape[0], 4, 4)
+    return OdometryState(_downsample_lanes(first_xyzi, first_mask, config),
+                         eye.clone(), eye.clone())
+
+
+def odometry_step_lanes(state: OdometryState, xyzi, mask,
+                        config: OdometryConfig = OdometryConfig()):
+    """``odometry_step`` of B lanes (``[B, N, 4]`` / ``[B, N]``, a state
+    from ``odometry_init_lanes``): the tuple's entries gain a leading B.
+    The lanes never interact: each equals the same call on it alone, bit
+    for bit."""
+    B = mask.shape[0]
+    cur_ds = _downsample_lanes(xyzi, mask, config)
+    m = ndt.build_ndt_map_lanes(state.prev_ds, config.ndt)
     eye = torch.eye(4, dtype=xyzi.dtype)
-    guess = state.prev_T if config.warm_start else eye
+    guess = state.prev_T if config.warm_start else eye.expand(B, 4, 4)
     n_ev = n_ga = syncs = 0
     fine_cfg = config.ndt
     if config.coarse_leaf > 0:
         # Same map, fewer source points: a downsample of the working cloud.
-        coarse = voxel_downsample(cur_ds, config.coarse_leaf,
-                                  config.coarse_capacity,
-                                  with_intensity=config.keep_intensity)
-        res_c = ndt.ndt_align(m, coarse, guess, config.ndt)
-        if res_c.converged:
-            guess = res_c.transform
+        coarse = voxel_downsample_lanes(cur_ds.xyzi, cur_ds.mask,
+                                        config.coarse_leaf,
+                                        config.coarse_capacity,
+                                        with_intensity=config.keep_intensity)
+        res_c = ndt.ndt_align_lanes(m, coarse, guess, config.ndt)
+        guess = torch.where(res_c.converged[:, None, None], res_c.transform,
+                            guess)
         n_ev, n_ga, syncs = res_c.evaluations, res_c.gathers, res_c.host_syncs
         fine_cfg = fine_cfg._replace(regather_iterations=min(
             config.fine_regather, config.ndt.regather_iterations))
-    res = ndt.ndt_align(m, cur_ds, guess, fine_cfg)
-    T = res.transform if res.converged else eye
-    pose = state.pose @ T
+    res = ndt.ndt_align_lanes(m, cur_ds, guess, fine_cfg)
+    T = torch.where(res.converged[:, None, None], res.transform, eye)
+    pose = torch.stack([state.pose[b] @ T[b] for b in range(B)])
     out = (pose, T, res.converged, res.iterations, res.trans_probability,
            n_ev + res.evaluations, n_ga + res.gathers,
            syncs + res.host_syncs)
     return OdometryState(cur_ds, pose, T), out
 
 
+def ndt_odometry_lanes(scans_xyzi, scans_mask,
+                       config: OdometryConfig = OdometryConfig(),
+                       initial_poses=None) -> OdometryOutput:
+    """``ndt_odometry`` of B independent sequences ``[B, S, N, 4]`` / ``[B,
+    S, N]`` in lockstep: an OdometryOutput whose fields have a leading B;
+    ``poses[:, 0] = initial_poses`` ``[B, 4, 4]`` (identity)."""
+    dtype = scans_xyzi.dtype
+    B, S = scans_mask.shape[:2]
+    eye = torch.eye(4, dtype=dtype).expand(B, 1, 4, 4)
+    state = odometry_init_lanes(scans_xyzi[:, 0], scans_mask[:, 0], config)
+    if initial_poses is not None:
+        state = state._replace(pose=torch.as_tensor(initial_poses).to(
+            "cpu", dtype).reshape(B, 4, 4))
+    pose0 = state.pose[:, None]
+    outs = []
+    for i in range(1, S):
+        state, out = odometry_step_lanes(state, scans_xyzi[:, i],
+                                         scans_mask[:, i], config)
+        outs.append(out)
+    if not outs:
+        zi = torch.zeros((B, 1), dtype=torch.int32)
+        return OdometryOutput(pose0.clone(), eye.clone(),
+                              torch.ones((B, 1), dtype=torch.bool), zi,
+                              torch.zeros((B, 1), dtype=dtype), zi, zi, zi)
+    poses, pairwise, conv, iters, probs, evals, gathers, syncs = (
+        torch.stack(c, 1) for c in zip(*outs))
+
+    def first(col, value):
+        return torch.cat([torch.full((B, 1), value, dtype=col.dtype), col], 1)
+
+    return OdometryOutput(
+        torch.cat([pose0, poses], 1), torch.cat([eye, pairwise], 1),
+        first(conv, True), first(iters, 0), first(probs, 0), first(evals, 0),
+        first(gathers, 0), first(syncs, 0))
+
+
 def odometry_init(first_xyzi, first_mask,
                   config: OdometryConfig = OdometryConfig()) -> OdometryState:
-    eye = torch.eye(4, dtype=first_xyzi.dtype)
-    return OdometryState(_downsample(first_xyzi, first_mask, config), eye,
-                         eye)
+    state = odometry_init_lanes(first_xyzi[None], first_mask[None], config)
+    return _lane(state, 0)
+
+
+def _lane(state: OdometryState, b: int) -> OdometryState:
+    ds = state.prev_ds
+    return OdometryState(PointCloud(ds.xyzi[b], ds.mask[b]), state.pose[b],
+                         state.prev_T[b])
+
+
+def odometry_step(state: OdometryState, xyzi, mask,
+                  config: OdometryConfig = OdometryConfig()):
+    """Process one scan (``odometry_step_lanes`` of one lane); returns
+    ``(new_state, (pose, pairwise_T, converged, iterations,
+    trans_probability, evaluations, gathers, host_syncs))``, JAX's tuple
+    plus the host syncs of the aligns."""
+    ds = state.prev_ds
+    lanes = OdometryState(PointCloud(ds.xyzi[None], ds.mask[None]),
+                          state.pose[None], state.prev_T[None])
+    new, out = odometry_step_lanes(lanes, xyzi[None], mask[None], config)
+    pose, T, conv, iters, prob, evals, gathers, syncs = (o[0] for o in out)
+    return _lane(new, 0), (pose, T, bool(conv), int(iters), prob,
+                           int(evals), int(gathers), int(syncs))
 
 
 def _stack(pose0, outs) -> OdometryOutput:
@@ -172,21 +256,15 @@ def _stack(pose0, outs) -> OdometryOutput:
 def ndt_odometry(scans_xyzi, scans_mask,
                  config: OdometryConfig = OdometryConfig(),
                  initial_pose=None) -> OdometryOutput:
-    """Run NDT odometry over a scan stack ``[S, N, 4]`` / ``[S, N]``.
+    """Run NDT odometry over a scan stack ``[S, N, 4]`` / ``[S, N]``
+    (``ndt_odometry_lanes`` of one lane).
 
     Scan 0 seeds the target; ``poses[0] = initial_pose`` (identity).
     """
-    dtype = scans_xyzi.dtype
-    pose0 = torch.eye(4, dtype=dtype) if initial_pose is None else (
-        torch.as_tensor(initial_pose).to("cpu", dtype))
-    state = odometry_init(scans_xyzi[0], scans_mask[0], config)._replace(
-        pose=pose0)
-    outs = []
-    for i in range(1, scans_xyzi.shape[0]):
-        state, out = odometry_step(state, scans_xyzi[i], scans_mask[i],
-                                   config)
-        outs.append(out)
-    return _stack(pose0, outs)
+    out = ndt_odometry_lanes(
+        scans_xyzi[None], scans_mask[None], config,
+        None if initial_pose is None else torch.as_tensor(initial_pose)[None])
+    return OdometryOutput(*(f[0] for f in out))
 
 
 def _merge_into_map(map_cloud: PointCloud, cur_ds: PointCloud, pose,

@@ -15,6 +15,12 @@ Re-implements ``pclomp::NormalDistributionsTransform`` (reference
   launch an exact evaluation; the frozen line search hashes in plain torch
   for K2 and sums with K3.
 - ``ndt_align``: Newton steps with the More-Thuente line search.
+- The fleet's lane axis (JAX's ``vmap``): ``build_ndt_map_lanes`` builds
+  B maps in one pass, and ``ndt_align_lanes`` runs B aligns in lockstep,
+  each lane's host logic its own generator (``_align_steps``, which
+  ``ndt_align`` drives alone) and each round one K1 or K3 launch and one
+  host sync for all running lanes. Each lane is bit-identical to the
+  single-lane functions on it.
 
 The host loop is a design choice, not a fallback. JAX runs the Newton and
 line-search control flow inside ``lax.while_loop``; here it is a Python
@@ -45,11 +51,12 @@ import numpy as np
 import torch
 
 from toyslam_tpu_torch.core import se3
-from toyslam_tpu_torch.core.pointcloud import PointCloud, voxel_grid
+from toyslam_tpu_torch.core.pointcloud import PointCloud, voxel_grid_lanes
 from toyslam_tpu_torch.ops import ndt_kernels, nn_kernels
 from toyslam_tpu_torch.ops.eigh3 import eigh3_soa
-from toyslam_tpu_torch.ops.segment import (INT_MAX, run_bookkeeping,
-                                           seg_broadcast, seg_reduce)
+from toyslam_tpu_torch.ops.segment import (INT_MAX, run_bookkeeping_lanes,
+                                           seg_broadcast_lanes,
+                                           seg_reduce_lanes, sort_lanes)
 
 
 class NDTConfig(NamedTuple):
@@ -136,68 +143,86 @@ def build_ndt_map(target: PointCloud, config: NDTConfig) -> NDTMap:
 
     Covariances are two-pass and centred in voxel-corner coordinates, as in
     the JAX package: pass 1 sums corner-relative coordinates per voxel,
-    pass 2 sums exactly mean-centred products.
+    pass 2 sums exactly mean-centred products. It is the one-row form of
+    ``build_ndt_map_lanes``.
     """
-    dtype = target.xyzi.dtype
-    dev = target.xyzi.device
+    lanes = build_ndt_map_lanes(
+        PointCloud(target.xyzi[None], target.mask[None]), config)
+    return NDTMap(*(f[0] for f in lanes))
+
+
+def build_ndt_map_lanes(targets: PointCloud, config: NDTConfig) -> NDTMap:
+    """``build_ndt_map`` of B targets at once (``xyzi [B, N, 4]``, ``mask
+    [B, N]``): an NDTMap whose fields have a leading B, each lane in its
+    own grid and bit-identical to ``build_ndt_map`` of it alone. One
+    lane-major sort, one segment sum a pass, one eigensolve and one hash
+    scatter (into ``[B, grid_capacity, 16]``) serve every lane."""
+    dtype = targets.xyzi.dtype
+    dev = targets.xyzi.device
     cap = config.grid_capacity
     if cap & (cap - 1):
         raise ValueError(f"grid_capacity {cap} is not a power of two")
+    B, n = targets.mask.shape
+    if B * cap >= 2**31:
+        raise ValueError(f"{B} lanes of {cap} hash rows exceed int32 slots")
     V = config.map_capacity
     zero = torch.zeros((), dtype=dtype, device=dev)
     one = zero + 1.0
     res_t = zero + config.resolution
 
-    px, py, pz, _ = target.xyzi.T
-    _, min_b, div, vid = voxel_grid(px, py, pz, target.mask,
-                                    config.resolution)
-    div_mul = torch.stack([torch.ones_like(div[0]), div[0], div[0] * div[1]])
-    n = vid.shape[0]
+    px, py, pz, _ = targets.xyzi.unbind(-1)
+    _, min_b, div, vid = voxel_grid_lanes(px, py, pz, targets.mask,
+                                          config.resolution)
+    div_mul = torch.stack([torch.ones_like(div[:, 0]), div[:, 0],
+                           div[:, 0] * div[:, 1]], -1)
 
-    sorted_vid, order = torch.sort(vid, stable=True)
-    sx, sy, sz = px[order], py[order], pz[order]
-    first, pos, n_unique = run_bookkeeping(sorted_vid)
+    sorted_vid, order = sort_lanes(vid)
+    sx, sy, sz = (c.reshape(-1)[order] for c in (px, py, pz))
+    first, pos, n_unique = run_bookkeeping_lanes(sorted_vid)
     # Points of voxels beyond the slot capacity drop out of the map.
     in_map = (sorted_vid != INT_MAX) & (pos < V)
 
-    d0 = div[0].clamp(min=1)
-    d1_ = div[1].clamp(min=1)
-    d01 = (div[0] * div[1]).clamp(min=1)
+    d0 = div[:, 0:1].clamp(min=1)
+    d1_ = div[:, 1:2].clamp(min=1)
+    d01 = (div[:, 0:1] * div[:, 1:2]).clamp(min=1)
+    mb = [min_b[:, a:a + 1] for a in range(3)]
 
     def corner(ids):
         return (ids % d0, (ids // d0) % d1_, ids // d01)
 
     pid = torch.where(sorted_vid == INT_MAX, 0, sorted_vid)
     pi_, pj_, pk_ = corner(pid)
-    cx = torch.where(in_map, sx - (pi_ + min_b[0]) * res_t, zero)
-    cy = torch.where(in_map, sy - (pj_ + min_b[1]) * res_t, zero)
-    cz = torch.where(in_map, sz - (pk_ + min_b[2]) * res_t, zero)
+    cx = torch.where(in_map, sx - (pi_ + mb[0]) * res_t, zero)
+    cy = torch.where(in_map, sy - (pj_ + mb[1]) * res_t, zero)
+    cz = torch.where(in_map, sz - (pk_ + mb[2]) * res_t, zero)
 
-    acc1, starts = seg_reduce(
-        sorted_vid, torch.stack([in_map.to(dtype), cx, cy, cz], 1),
+    acc1, starts = seg_reduce_lanes(
+        sorted_vid, torch.stack([in_map.to(dtype), cx, cy, cz], -1),
         first, pos, V)
-    d_seg = acc1[:, 1:] / acc1[:, :1].clamp(min=1.0)
-    d_pt = seg_broadcast(d_seg, pos)
-    ex = torch.where(in_map, cx - d_pt[:, 0], zero)
-    ey = torch.where(in_map, cy - d_pt[:, 1], zero)
-    ez = torch.where(in_map, cz - d_pt[:, 2], zero)
-    acc2, _ = seg_reduce(
+    d_seg = acc1[..., 1:] / acc1[..., :1].clamp(min=1.0)
+    d_pt = seg_broadcast_lanes(d_seg, pos)
+    ex = torch.where(in_map, cx - d_pt[..., 0], zero)
+    ey = torch.where(in_map, cy - d_pt[..., 1], zero)
+    ez = torch.where(in_map, cz - d_pt[..., 2], zero)
+    acc2, _ = seg_reduce_lanes(
         sorted_vid,
-        torch.stack([ex * ex, ex * ey, ex * ez, ey * ey, ey * ez, ez * ez], 1),
+        torch.stack([ex * ex, ex * ey, ex * ez, ey * ey, ey * ez, ez * ez],
+                    -1),
         first, pos, V)
 
-    occupied = torch.arange(V, device=dev) < n_unique
-    unique_ids = torch.where(occupied, sorted_vid[starts.clamp(max=n - 1)],
-                             INT_MAX)
-    cnt = torch.where(occupied, acc1[:, 0], zero)
+    occupied = torch.arange(V, device=dev) < n_unique[:, None]
+    unique_ids = torch.where(
+        occupied, sorted_vid.reshape(-1)[starts.clamp(max=B * n - 1)],
+        INT_MAX)
+    cnt = torch.where(occupied, acc1[..., 0], zero)
     cnt_safe = cnt.clamp(min=1.0)
-    d_slot = acc1[:, 1:] / cnt_safe[:, None]
+    d_slot = acc1[..., 1:] / cnt_safe[..., None]
     si, sj, sk = corner(torch.where(unique_ids == INT_MAX, 0, unique_ids))
-    mean_x = (si + min_b[0]).to(dtype) * res_t + d_slot[:, 0]
-    mean_y = (sj + min_b[1]).to(dtype) * res_t + d_slot[:, 1]
-    mean_z = (sk + min_b[2]).to(dtype) * res_t + d_slot[:, 2]
+    mean_x = (si + mb[0]).to(dtype) * res_t + d_slot[..., 0]
+    mean_y = (sj + mb[1]).to(dtype) * res_t + d_slot[..., 1]
+    mean_z = (sk + mb[2]).to(dtype) * res_t + d_slot[..., 2]
     corr = (cnt_safe - 1.0) / (cnt_safe * cnt_safe)
-    v00, v01, v02, v11, v12, v22 = (acc2 * corr[:, None]).T
+    v00, v01, v02, v11, v12, v22 = (acc2 * corr[..., None]).unbind(-1)
 
     (l0, l1, l2), vec = eigh3_soa(v00, v01, v02, v11, v12, v22)
     # Roundoff-scale negative eigenvalues clamp to zero; genuinely
@@ -227,12 +252,12 @@ def build_ndt_map(target: PointCloud, config: NDTConfig) -> NDTMap:
 
     # Closed-form symmetric 3x3 inverse (adjugate / det).
     A = v11 * v22 - v12 * v12
-    B = -(v01 * v22 - v12 * v02)
+    B_ = -(v01 * v22 - v12 * v02)
     C = v01 * v12 - v11 * v02
-    det = v00 * A + v01 * B + v02 * C
+    det = v00 * A + v01 * B_ + v02 * C
     inv_det = torch.where(det != 0, 1.0 / torch.where(det == 0, one, det),
                           zero)
-    icov = [A * inv_det, B * inv_det, C * inv_det,
+    icov = [A * inv_det, B_ * inv_det, C * inv_det,
             (v00 * v22 - v02 * v02) * inv_det,
             -(v00 * v12 - v01 * v02) * inv_det,
             (v00 * v11 - v01 * v01) * inv_det]
@@ -242,21 +267,27 @@ def build_ndt_map(target: PointCloud, config: NDTConfig) -> NDTMap:
     valid = ((cnt >= config.min_points_per_voxel) & (unique_ids != INT_MAX)
              & eig_ok & icov_ok)
     vw = valid.to(dtype)
-    icov6 = torch.stack([c * vw for c in icov])
-    mean3 = torch.stack([mean_x, mean_y, mean_z])
+    icov6 = torch.stack([c * vw for c in icov], 1)
+    mean3 = torch.stack([mean_x, mean_y, mean_z], 1)
     vid_lo = torch.where(valid, unique_ids & 0xFFFF, -1).to(dtype)
     vid_hi = torch.where(valid, unique_ids >> 16, -1).to(dtype)
-    table = torch.cat([mean3, icov6, vw[None], vid_lo[None], vid_hi[None],
-                       torch.zeros((4, V), dtype=dtype, device=dev)], 0).T
+    table = torch.cat([mean3, icov6, vw[:, None], vid_lo[:, None],
+                       vid_hi[:, None],
+                       torch.zeros((B, 4, V), dtype=dtype, device=dev)],
+                      1).transpose(1, 2)
 
     # Hash-addressed rows: add-form scatter of every valid row to slot
-    # vid & (cap - 1). Two aliased voxels add their rows; the valid flag of
-    # the sum is 2 and the gather's exactly-one-voxel gate drops both, so
-    # the order of a collided sum never reaches a result.
+    # vid & (cap - 1) of its lane's table. Two aliased voxels add their
+    # rows; the valid flag of the sum is 2 and the gather's
+    # exactly-one-voxel gate drops both, so the order of a collided sum
+    # never reaches a result.
     ok_row = valid & (unique_ids != INT_MAX)
-    h_safe = torch.where(ok_row, unique_ids & (cap - 1), 0).long()
-    hash_table = torch.zeros((cap, 16), dtype=dtype, device=dev).index_add_(
-        0, h_safe, torch.where(ok_row[:, None], table, zero))
+    lane_row0 = torch.arange(B, device=dev)[:, None] * cap
+    h_safe = torch.where(ok_row, unique_ids & (cap - 1), 0).long() + lane_row0
+    hash_table = torch.zeros((B * cap, 16), dtype=dtype,
+                             device=dev).index_add_(
+        0, h_safe.reshape(-1),
+        torch.where(ok_row[..., None], table, zero).reshape(B * V, 16))
 
     return NDTMap(
         unique_ids=unique_ids,
@@ -264,7 +295,7 @@ def build_ndt_map(target: PointCloud, config: NDTConfig) -> NDTMap:
         min_b=min_b,
         div=div,
         div_mul=div_mul,
-        hash_table=hash_table,
+        hash_table=hash_table.view(B, cap, 16),
         vid_of_slot=torch.where(valid, unique_ids, INT_MAX),
         mean3=mean3,
         icov6=icov6,
@@ -529,42 +560,27 @@ def _update_interval(a_l, f_l, g_l, a_u, f_u, g_u, a_t, f_t, g_t):
     return a_l, f_l, g_l, a_u, f_u, g_u, True
 
 
-def ndt_align(ndt_map: NDTMap, source: PointCloud, guess=None,
-              config: NDTConfig = NDTConfig()) -> NDTResult:
-    """Align ``source`` to the map: Newton on the 6-dof Euler chart with
-    More-Thuente step control (``computeTransformation``,
-    ``ndt_omp_impl.hpp:80-171``; ``computeStepLengthMT``, ``:772-932``).
-
-    Control flow, iteration and evaluation counts follow the JAX package's
-    ``ndt_align`` exactly, including its three neighbourhood modes: exact
-    (fresh gather per evaluation), frozen line search (one gather per
-    Newton iteration) and turbo (regather for ``regather_iterations``
-    iterations, then keep the last neighbourhood).
-    """
-    src_xyz = source.xyzi[:, :3]
-    d1, d2, _ = gauss_coefficients(config.resolution, config.outlier_ratio)
-    offsets = _OFFSETS[config.search_method]
-    ev = _Evaluator(ndt_map, src_xyz, source.mask, config.resolution,
-                    offsets, d1, d2)
-    dt = ev.np_dtype.type
-    if guess is None:
-        guess = torch.eye(4, dtype=ev.dtype)
-    p0 = se3.matrix_to_pose6(
-        torch.as_tensor(guess).detach().to("cpu", ev.dtype)).numpy()
-
+def _align_steps(p0, config: NDTConfig):
+    """The host logic of one align as a generator, in the source dtype of
+    the host pose ``p0``: it yields ``("gather", p)`` (a fresh
+    neighbourhood at pose p for the frozen line search; nothing is sent
+    back) and ``("eval", p, frozen)`` (the derivatives at p, from the last
+    gathered neighbourhood if ``frozen``, else fresh through K1; the caller
+    sends back host ``(score, grad, hess)``), and returns ``(p, iterations,
+    failed, score, evaluations, gathers)``. ``ndt_align`` drives one,
+    ``ndt_align_lanes`` one a lane in lockstep."""
+    dt = p0.dtype.type
     step_max = dt(config.step_size)
     step_min = dt(config.transformation_epsilon / 2.0)
     eps = dt(config.transformation_epsilon)
     mu = dt(1.0e-4)
     nu = dt(0.9)
+    frozen = config.frozen_linesearch
 
     def clip_step(a):
         return np.minimum(np.maximum(a, step_min), step_max)
 
-    def gather(p):
-        return ev.gather(ev.params(p))
-
-    def line_search(p, step_dir, step_init, score, grad, hess, ls_stats):
+    def line_search(p, step_dir, step_init, score, grad, hess, gathered):
         """Returns (a_t, p_new, score, grad, hess, evaluations)."""
         phi_0 = -score
         d_phi_0 = -np.dot(grad, step_dir)
@@ -574,13 +590,12 @@ def ndt_align(ndt_map: NDTMap, source: PointCloud, guess=None,
         zero_dir = d_phi_0 == 0
 
         a_t = clip_step(step_init)
-        if config.frozen_linesearch and ls_stats is None:
+        if frozen and not gathered:
             # One gather at the first trial point; further trials reuse it.
-            ls_stats = gather(p + step_dir * a_t)
-        trial_stats = ls_stats if config.frozen_linesearch else None
+            yield ("gather", p + step_dir * a_t)
         # The first trial is evaluated (and counted) even on a zero
         # direction, as in the JAX program.
-        score_t, grad_t, hess_t = ev.derivs(p + step_dir * a_t, trial_stats)
+        score_t, grad_t, hess_t = yield ("eval", p + step_dir * a_t, frozen)
         phi_t = -score_t
         d_phi_t = -np.dot(grad_t, step_dir)
         psi_t = phi_t - phi_0 - mu * d_phi_0 * a_t
@@ -597,8 +612,8 @@ def ndt_align(ndt_map: NDTMap, source: PointCloud, guess=None,
             f_sel, g_sel = (psi_t, d_psi_t) if open_ else (phi_t, d_phi_t)
             a_t = clip_step(_trial_value_selection(
                 a_l, f_l, g_l, a_u, f_u, g_u, a_t, f_sel, g_sel))
-            score_t, grad_t, hess_t = ev.derivs(p + step_dir * a_t,
-                                                trial_stats)
+            score_t, grad_t, hess_t = yield ("eval", p + step_dir * a_t,
+                                             frozen)
             phi_t = -score_t
             d_phi_t = -np.dot(grad_t, step_dir)
             psi_t = phi_t - phi_0 - mu * d_phi_0 * a_t
@@ -619,9 +634,10 @@ def ndt_align(ndt_map: NDTMap, source: PointCloud, guess=None,
             return dt(0.0), p + step_dir * dt(0.0), score, grad, hess, 1 + it
         return a_t, p + step_dir * a_t, score_t, grad_t, hess_t, 1 + it
 
-    turbo = config.frozen_linesearch and config.regather_iterations < (1 << 29)
-    stats = gather(p0) if turbo else None
-    score, grad, hess = ev.derivs(p0, stats)
+    turbo = frozen and config.regather_iterations < (1 << 29)
+    if turbo:
+        yield ("gather", p0)
+    score, grad, hess = yield ("eval", p0, turbo)
     p = p0
     it = 0
     converged = failed = False
@@ -630,24 +646,22 @@ def ndt_align(ndt_map: NDTMap, source: PointCloud, guess=None,
     def newton_step(mode):
         """One Newton iteration; mode: "exact" (fresh gathers inside the
         line search), "gather" (regather at the predicted first trial
-        point) or "frozen" (keep ``stats``)."""
+        point) or "frozen" (keep the last neighbourhood)."""
         nonlocal p, score, grad, hess, it, converged, failed, evals, gathers
-        nonlocal stats
         if np.isfinite(hess).all() and np.isfinite(grad).all():
             delta_p = se3.svd_solve(torch.from_numpy(hess),
                                     torch.from_numpy(-grad)).numpy()
         else:  # the SVD of a non-finite matrix is NaN (JAX) or raises (torch)
-            delta_p = np.full(6, np.nan, ev.np_dtype)
+            delta_p = np.full(6, np.nan, p0.dtype)
         norm = np.linalg.norm(delta_p)
         degenerate = norm == 0 or not np.isfinite(norm)
         step_dir = delta_p / (dt(1.0) if degenerate else norm)
         if mode == "gather":
             d_phi_0 = -np.dot(grad, step_dir)
             dir_eff = -step_dir if d_phi_0 > 0 else step_dir
-            stats = gather(p + dir_eff * clip_step(norm))
-        a_t, p_new, score_n, grad_n, hess_n, n_ev = line_search(
-            p, step_dir, norm, score, grad, hess,
-            None if mode == "exact" else stats)
+            yield ("gather", p + dir_eff * clip_step(norm))
+        a_t, p_new, score_n, grad_n, hess_n, n_ev = yield from line_search(
+            p, step_dir, norm, score, grad, hess, mode != "exact")
         if not degenerate:
             p, score, grad, hess = p_new, score_n, grad_n, hess_n
         # Reference check order (``ndt_omp_impl.hpp:158-162``): the eps test
@@ -661,13 +675,51 @@ def ndt_align(ndt_map: NDTMap, source: PointCloud, guess=None,
 
     if turbo:
         while not converged and it < config.regather_iterations:
-            newton_step("gather")
+            yield from newton_step("gather")
         while not converged:
-            newton_step("frozen")
+            yield from newton_step("frozen")
     else:
         while not converged:
-            newton_step("exact")
+            yield from newton_step("exact")
+    return p, it, failed, score, evals, gathers
 
+
+def _guess_pose6(guess, dtype):
+    """Host pose6 of a 4x4 guess (identity when None), in ``dtype``."""
+    if guess is None:
+        guess = torch.eye(4, dtype=dtype)
+    return se3.matrix_to_pose6(
+        torch.as_tensor(guess).detach().to("cpu", dtype)).numpy()
+
+
+def ndt_align(ndt_map: NDTMap, source: PointCloud, guess=None,
+              config: NDTConfig = NDTConfig()) -> NDTResult:
+    """Align ``source`` to the map: Newton on the 6-dof Euler chart with
+    More-Thuente step control (``computeTransformation``,
+    ``ndt_omp_impl.hpp:80-171``; ``computeStepLengthMT``, ``:772-932``).
+
+    Control flow, iteration and evaluation counts follow the JAX package's
+    ``ndt_align`` exactly, including its three neighbourhood modes: exact
+    (fresh gather per evaluation), frozen line search (one gather per
+    Newton iteration) and turbo (regather for ``regather_iterations``
+    iterations, then keep the last neighbourhood).
+    """
+    d1, d2, _ = gauss_coefficients(config.resolution, config.outlier_ratio)
+    ev = _Evaluator(ndt_map, source.xyzi[:, :3], source.mask,
+                    config.resolution, _OFFSETS[config.search_method], d1,
+                    d2)
+    steps = _align_steps(_guess_pose6(guess, ev.dtype), config)
+    stats = reply = None
+    try:
+        while True:
+            req = steps.send(reply)
+            if req[0] == "gather":
+                stats = ev.gather(ev.params(req[1]))
+                reply = None
+            else:
+                reply = ev.derivs(req[1], stats if req[2] else None)
+    except StopIteration as stop:
+        p, it, failed, score, evals, gathers = stop.value
     pose6 = torch.from_numpy(p)
     return NDTResult(
         transform=se3.pose6_to_matrix(pose6),
@@ -678,6 +730,164 @@ def ndt_align(ndt_map: NDTMap, source: PointCloud, guess=None,
         evaluations=evals,
         gathers=gathers,
         host_syncs=ev.syncs,
+    )
+
+
+class _LaneEvaluator:
+    """The lockstep align's device side over B lanes: the lane map, the
+    sources [B, 3, N], the lanes' frozen neighbourhoods [B, 10, K*N], and
+    one batched gather and one batched evaluation a round."""
+
+    def __init__(self, ndt_map, src_xyz, src_mask, resolution, offsets,
+                 d1, d2):
+        self.map = ndt_map
+        self.dev = src_xyz.device
+        self.dtype = src_xyz.dtype
+        self.np_dtype = torch.empty((), dtype=self.dtype).numpy().dtype
+        self.B, self.N = src_mask.shape
+        self.xyz = src_xyz[..., :3].transpose(1, 2).contiguous()  # [B, 3, N]
+        self.mask = src_mask.contiguous()
+        self.offsets = torch.tensor(offsets, dtype=torch.int32).to(
+            self.dev, non_blocking=True)  # no wait on the map's build
+        self.inv_leaf = 1.0 / resolution
+        self.d12 = np.array([d1, d2], self.np_dtype)
+        self.cap = ndt_map.hash_table.shape[1]
+        self.stats = None  # [B, 10, K*N], a lane's row set by its gathers
+        self.n_src = None
+
+    def _upload(self, lanes, poses):
+        """Host poses of ``lanes`` -> the [L, 83] parameters and the lane
+        ids on the device (non-blocking copies: no host sync)."""
+        host = np.stack([np.concatenate(
+            [self.d12, _pose_matrix(p)[:3, :].ravel(), j.ravel(), h.ravel()])
+            for p, (j, h) in ((p, _angle_tables(p)) for p in poses)])
+        ids = torch.tensor(lanes, dtype=torch.int32)
+        return (torch.from_numpy(host).to(self.dev, non_blocking=True),
+                ids.to(self.dev, non_blocking=True))
+
+    def gather(self, lanes, poses):
+        """The frozen neighbourhoods of ``lanes`` at their host poses: the
+        plain neighbour hash over the lanes at once, one K2 launch over the
+        lanes' pairs in a [B*cap, 16] table, one copy into the lanes'
+        rows."""
+        m = self.map
+        params, ids = self._upload(lanes, poses)
+        idx = ids.long()
+
+        def rows(t):  # the lanes' rows; ``lanes`` is sorted and distinct
+            return t if len(lanes) == self.B else t[idx]
+
+        h, nvid, okm = ndt_kernels.ndt_neighbor_hash_lanes_plain(
+            params, rows(self.xyz), rows(self.mask), rows(m.min_b),
+            rows(m.div), self.cap, self.inv_leaf, self.offsets)
+        h = h + ids[:, None] * self.cap
+        packed = ndt_kernels.ndt_gather_repack(
+            m.hash_table.view(self.B * self.cap, 16), h.reshape(-1),
+            nvid.reshape(-1), okm.reshape(-1))
+        if self.stats is None:
+            self.stats = torch.zeros((self.B, 10, h.shape[1]),
+                                     dtype=self.dtype, device=self.dev)
+        self.stats[idx] = packed.view(10, len(lanes), -1).transpose(0, 1)
+
+    def derivs(self, requests):
+        """Host (score, grad, hess) of every request ``(lane, pose, frozen)``
+        in one device-to-host copy: one K1 launch over the fresh ones and
+        one K3 launch over the frozen ones (the first round also carries
+        each lane's source point count)."""
+        m = self.map
+        sums = []
+        order = []
+        for frozen in (False, True):
+            group = [r for r in requests if r[2] == frozen]
+            if not group:
+                continue
+            lanes = [r[0] for r in group]
+            params, ids = self._upload(lanes, [r[1] for r in group])
+            if frozen:
+                sums.append(ndt_kernels.ndt_terms_packed_lanes(
+                    params, self.xyz, self.stats, ids))
+            else:
+                sums.append(ndt_kernels.ndt_terms_gathered_lanes(
+                    params, self.xyz, self.mask, m.hash_table, m.min_b,
+                    m.div, self.inv_leaf, self.offsets, ids))
+            order += lanes
+        flat = torch.cat(sums).reshape(-1)
+        if self.n_src is None:
+            counts = self.mask.sum(1, dtype=flat.dtype)
+            host = torch.cat([flat, counts]).cpu().numpy()
+            flat, self.n_src = host[:-self.B], np.maximum(host[-self.B:], 1)
+        else:
+            flat = flat.cpu().numpy()
+        rows = flat.reshape(len(order), ndt_kernels.N_TERMS)
+        return dict(zip(order, (_unpack(r) for r in rows)))
+
+
+
+def ndt_align_lanes(ndt_map: NDTMap, sources: PointCloud, guesses=None,
+                    config: NDTConfig = NDTConfig()) -> NDTResult:
+    """Align B sources (``xyzi [B, N, 4]``, ``mask [B, N]``) to the lanes
+    of a lane map (``build_ndt_map_lanes``) from ``guesses [B, 4, 4]``
+    (identity when None), in lockstep: each lane runs ``ndt_align``'s host
+    logic (its own generator), and each round brings every running lane one
+    evaluation in one K1 or K3 launch over those lanes, after one batched
+    plain hash and one K2 launch for the lanes that regather, with one
+    device-to-host copy of their sums: one host sync a round for all lanes.
+    Finished lanes drop out of the launches.
+
+    Returns an NDTResult with a leading B (tensors on the host): each lane's
+    pose, iterations, evaluations and gathers equal ``ndt_align`` of it
+    alone, bit for bit (as JAX's ``vmap`` masks finished lanes);
+    ``host_syncs`` is the rounds, the same for every lane."""
+    B = sources.mask.shape[0]
+    d1, d2, _ = gauss_coefficients(config.resolution, config.outlier_ratio)
+    ev = _LaneEvaluator(ndt_map, sources.xyzi, sources.mask,
+                        config.resolution, _OFFSETS[config.search_method],
+                        d1, d2)
+    if guesses is None:
+        guesses = [None] * B
+    steps = [_align_steps(_guess_pose6(g, ev.dtype), config) for g in guesses]
+    pending, done = {}, {}
+
+    def advance(b, reply):
+        try:
+            pending[b] = steps[b].send(reply)
+        except StopIteration as stop:
+            pending.pop(b, None)
+            done[b] = stop.value
+
+    for b in range(B):
+        advance(b, None)
+    rounds = 0
+    while pending:
+        regather = sorted(b for b, r in pending.items() if r[0] == "gather")
+        if regather:
+            ev.gather(regather, [pending[b][1] for b in regather])
+            for b in regather:
+                advance(b, None)
+        live = sorted(pending)
+        replies = ev.derivs([(b, pending[b][1], pending[b][2])
+                             for b in live])
+        rounds += 1
+        for b in live:
+            advance(b, replies[b])
+
+    out = [done[b] for b in range(B)]
+    pose6 = [torch.from_numpy(o[0]) for o in out]
+
+    def ints(i):
+        return torch.tensor([o[i] for o in out], dtype=torch.int32)
+
+    return NDTResult(
+        transform=torch.stack([se3.pose6_to_matrix(p) for p in pose6]),
+        converged=torch.tensor([not o[2] for o in out]),
+        iterations=ints(1),
+        trans_probability=torch.stack([
+            torch.from_numpy(np.asarray(o[3] / ev.n_src[b]))
+            for b, o in enumerate(out)]),
+        pose6=torch.stack(pose6),
+        evaluations=ints(4),
+        gathers=ints(5),
+        host_syncs=torch.full((B,), rounds, dtype=torch.int32),
     )
 
 
