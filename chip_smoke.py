@@ -33,11 +33,13 @@ just after:
   and ``pipelines/icp_slam.icp_slam`` on its scenario (K4);
 - ``pipelines/fusion.ndt_eskf_fusion`` over the 16 odometry scans with a
   seeded IMU log of 20 ticks a scan (K2, K3, then the ESKF), and the app
-  ``toyslam_tpu_torch.apps.uwb_demo`` at its defaults;
+  ``toyslam_tpu_torch.apps.uwb_demo`` at its defaults over 30 s;
 - the fleet (BASELINE config 5): ``pipelines/fusion.fleet_fusion`` over
   64 lanes of 16 scans of 16 x 1024 rays (K2, K3 with a lane axis, the
   ESKF over lanes), its chunks swept, and ``parallel/batch.vmap_align``
-  on the lanes' first pairs (K1 with a lane axis).
+  on the lanes' first pairs (K1 with a lane axis);
+- LOAM and the sliding-window smoother, which run no kernel of their own
+  (phases 25-26).
 
 It checks that every align converged and improved on its identity guess
 against the generated ground truth, that the card's exact NDT align lands
@@ -74,15 +76,34 @@ the fusion's poses equal phase 4's odometry bit for bit, its fused track
 lies within 5e-6 m of the same log through the f64 ESKF on the CPU and
 ``eskf_run`` makes no host sync. For the fleet it checks that every lane
 converged with a finite trajectory, that the lanes' iterations differ,
-that each lane checked (every lane of the first chunk and one of every
-other) equals ``ndt_odometry`` alone bit for bit and its fused track its
+that each lane checked (one of every other scene in the first chunk,
+its start scans in turn, and one of every other chunk) equals
+``ndt_odometry`` alone bit for bit and its fused track its
 own ESKF run within 3e-6 m, that every K1/K3 lane row equals the
 single-lane launch on its lane bit for bit and its plain version within
 ``TERMS_MAG_RTOL``, and every K2 launch its plain version bit for bit,
 along one chunk of ``fusion.FLEET_CHUNK`` lanes through the plain
 versions, that a lockstep align makes one host sync a round, that ``eskf_run``
 over lanes makes none, that chunks change no lane and a rerun is
-bit-identical. The line
+bit-identical. For LOAM (phase 25: ``pipelines/loam.loam_odometry`` over
+64 scans of HDL-32E's 32 x 1800 rays and over the benchmark's 64 of 16 x
+360, then ``apps/loam_demo`` at its defaults) it checks finite poses, a
+keyframe, no host sync and a bit-identical rerun, and holds each run to
+the port's f64 run of the same scans on the host: over the scans that
+f64 run tracks within 0.3 m (the drive loses track after ~25 scans in
+both packages) the ATE below 0.3 m, before the two runs' keyframe
+choices split the positions within ``LOAM_F64_TOL_M``, and a split only
+within a few scans of the f64 run losing track; each feature pick of the
+benchmark's scans that
+differs from the f64 run's must lie within the f32 error of a tie, a gate
+or a sector or ring border. For the smoother (phase 26: ``pipelines/
+batch_fusion`` over the benchmark's 256-keyframe log, window 20, then
+``apps/fusion_demo`` at its defaults) it checks finite outputs, a resume
+from a checkpoint at keyframe 128 bit-identical to the run, host syncs
+only from ``eigh`` (one a marginalisation), the f32 drift from the host's
+f64 run within twice the JAX package's own on that log, the JAX window
+test's inputs within that test's f32-vs-f64 bounds, and the app's gate. The f64 host runs of phases 25-26 go in a process of their
+own, started at the beginning. The line
 before the card's line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it. There is no CPU path: without a CUDA
@@ -100,6 +121,7 @@ import time
 import traceback
 import warnings
 from pathlib import Path
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
@@ -166,7 +188,7 @@ SCAN_PERIOD_S = 0.1  # the generator's 0.3 m and 0.004 rad a scan at 10 Hz
 FLEET_LANES, FLEET_SCANS, FLEET_SEEDS = 64, 16, 16
 FLEET_RAYS = (16, 1024)
 FLEET_CAPACITY = 8192
-FLEET_CHUNKS = (8, 16, 32, 64)
+FLEET_CHUNKS = (16, 64)
 FLEET_LANE_WIDTHS = (16, 64)
 FLEET_FUSED_TOL_M = 3e-6
 # A scan's align that the fleet's kernel and plain routes end more than
@@ -177,6 +199,45 @@ FLEET_FUSED_TOL_M = 3e-6
 # each route's end lies within it of one of those f64 ends
 # (``align_edge``).
 EDGE_MOVE = 1e-4
+# Phase 25, LOAM: loam-hdl32, 64 scans of the test world (sim/loam_world)
+# through HDL-32E's 32 rings at 0.2 deg (1800 rays a ring) over its -25..5
+# deg, padded to the app's 65536 points, at LoamConfig()'s defaults; and
+# loam-bench, bench.py:317-356's 64 scans of 16 x 360 rays (seed 3).
+LOAM_SCANS = 64
+LOAM_HDL = (32, 1800)
+LOAM_BENCH = (16, 360)
+LOAM_CAPACITY = 65536
+LOAM_FOV = (-25.0, 5.0)
+LOAM_HDL_SEED, LOAM_BENCH_SEED = 0, 3
+LOAM_CELLS = (("loam-hdl32", LOAM_HDL, LOAM_HDL_SEED, LOAM_CAPACITY),
+              ("loam-bench", LOAM_BENCH, LOAM_BENCH_SEED, None))
+LOAM_ATE_M = 0.3  # tests/test_loam.py's drift bound
+# The drive loses track after ~25 scans in both packages (the JAX app over
+# 64 frames reads an ATE of 67.6 m): the ATE is held over the scans the
+# host's f64 run tracks within LOAM_ATE_M, the card's positions against
+# that run's over the scans before their keyframe choices split (at least
+# LOAM_MIN_TRACKED), and a split must come within LOAM_SPLIT_SCANS of the
+# f64 run losing track (the onset of the failure, an edge of the data).
+LOAM_MIN_TRACKED = 20
+LOAM_SPLIT_SCANS = 4
+# The card (f32) against the port's f64 run on the host before the
+# keyframe choices split, in m: about twice the most that NVIDIA H100 80GB
+# HBM3 at 700 W showed (0.021 m, loam-bench scan 24; 0.0065 m loam-hdl32).
+LOAM_F64_TOL_M = 0.04
+LOAM_PROFILE_SCANS = 4
+# Phase 26, the smoother: smoother-w20, bench.py:284-314's log (256
+# keyframes of 20 IMU samples, seed 2) through BatchFusionConfig() (window
+# 20) in f32; a resume from a checkpoint at keyframe 128.
+SMOOTHER_RESUME_AT = 128
+SMOOTHER_PROFILE_KF = 4
+# The JAX package's own f32-against-f64 drift of batch_fusion on that log
+# (tests/jax_smoother_refs.py --drift on the CPU): its test bounds
+# (tests/test_window.py:137-175) do not hold there, so the card's drift is
+# held to twice JAX's. Those bounds are held on the inputs they were set
+# on, the test's own (tests/fixtures/window_f32_k10_seed5.npz).
+JAX_DRIFT_POS_M, JAX_DRIFT_VEL = 0.497061104964118, 2.160991981365262
+WINDOW_F32_POS_M, WINDOW_F32_VEL_MEDIAN, WINDOW_F32_VEL_LATE = 1e-2, 5e-2, 0.15
+HOST_REF_THREADS = 3
 NEW_PATH_KERNELS = ("ndt_terms_gathered", "ndt_gather_repack",
                     "ndt_terms_packed", "nearest_neighbor", "neg_dist_bf16",
                     "gicp_terms")
@@ -307,7 +368,9 @@ def count_syncs(fn):
     where = {}
 
     def record(message, category, filename, lineno, *rest):
-        if "synchroniz" not in str(message):
+        # (sync debug mode's own notice, "... does not yet detect all
+        # synchronizing operations", is not a sync)
+        if "synchroniz" not in str(message) or "debug mode" in str(message):
             return
         ours = [f for f in traceback.extract_stack()
                 if str(Path(f.filename).resolve()).startswith(pkg)]
@@ -721,38 +784,49 @@ def mapping_path(scans, scan_mask, xyzi, mask, cfg, odo_out, a_xyzi,
             out.append(d.xyzi[d.mask][:, :3].double().cpu().numpy())
         return out
 
-    t0 = time.perf_counter()
-    gold = golden_chain(clouds(g_scans, g_mask), cfg.ndt)
-    g_s = time.perf_counter() - t0
-    est = gout.odometry.poses.double().numpy()[:, :3, 3]
-    g_rmse, _ = evalio.ate(est, gold, align=True)
-    g_max = float(np.linalg.norm(est - gold, axis=1).max())
-    print(f"phase 17 golden chain: {GOLDEN_SCANS} scans of the align-65k "
-          f"scene ({len(scene)} points, shifted -0.3/-0.1 m a scan, 1 cm "
-          f"noise), ndt_mapping on the card {g_card_s:.2f} s, the f64 "
-          f"golden chain on the host {g_s:.1f} s: ATE aligned rmse "
-          f"{g_rmse:.4g} m (bound {GOLDEN_RMSE_M}), unaligned max "
-          f"{g_max:.4g} m (bound {GOLDEN_MAX_M})")
-    check(g_rmse < GOLDEN_RMSE_M and g_max < GOLDEN_MAX_M,
-          "the card's trajectory is far from the f64 golden chain")
-    # The JAX package's grid (1 << 15), for the record: its hash aliasing
-    # is why the port's default differs (pipelines/odometry.OdometryConfig).
+    # The f64 golden chains take ~75 s of host: they run in a process of
+    # their own while phases 18-24 use the card, and are read after them.
     jax_grid = cfg._replace(ndt=cfg.ndt._replace(grid_capacity=1 << 15))
     jpos = odometry.ndt_mapping(g_scans, g_mask, MAP_CAPACITY, jax_grid)
+    ncfg = cfg.ndt
+    inputs = {f"g{k}": c for k, c in enumerate(clouds(g_scans, g_mask))}
+    inputs.update({f"o{k}": c for k, c in enumerate(clouds(scans,
+                                                            scan_mask))})
+    inputs["ndt"] = np.array([ncfg.resolution, ncfg.step_size,
+                              ncfg.transformation_epsilon,
+                              ncfg.max_iterations])
+    job = HostJob("golden", inputs)
+    est = gout.odometry.poses.double().numpy()[:, :3, 3]
     jest = jpos.odometry.poses.double().numpy()[:, :3, 3]
-    print(f"  not gated: at the JAX package's grid_capacity 1 << 15, "
-          f"aligned rmse {evalio.ate(jest, gold, align=True)[0]:.4g} m, "
-          f"unaligned max {np.linalg.norm(jest - gold, axis=1).max():.4g} "
-          f"m")
-    t0 = time.perf_counter()
-    gold256 = golden_chain(clouds(scans, scan_mask), cfg.ndt)
     est256 = odo_out.poses.double().numpy()[:, :3, 3]
-    r256, _ = evalio.ate(est256, gold256, align=True)
-    e256 = np.linalg.norm(est256 - gold256, axis=1)
-    print(f"  odometry-256k vs its golden chain (not gated; scan 10 is an "
-          f"edge of the data; {time.perf_counter() - t0:.1f} s): aligned "
-          f"rmse {r256:.4g} m, unaligned max {e256.max():.4g} m at scan "
-          f"{int(e256.argmax())}, per scan {np.round(e256, 5).tolist()}")
+
+    def golden_phase():
+        gold, gold256 = job.get()["g"], job.get()["o"]
+        g_rmse, _ = evalio.ate(est, gold, align=True)
+        g_max = float(np.linalg.norm(est - gold, axis=1).max())
+        print(f"phase 17 golden chain (read now; the host ran it during "
+              f"phases 18-24): {GOLDEN_SCANS} scans of the align-65k scene "
+              f"({len(scene)} points, shifted -0.3/-0.1 m a scan, 1 cm "
+              f"noise), ndt_mapping on the card {g_card_s:.2f} s, the f64 "
+              f"golden chain on the host {float(job.get()['g_s']):.1f} s: "
+              f"ATE aligned rmse {g_rmse:.4g} m (bound {GOLDEN_RMSE_M}), "
+              f"unaligned max {g_max:.4g} m (bound {GOLDEN_MAX_M})")
+        check(g_rmse < GOLDEN_RMSE_M and g_max < GOLDEN_MAX_M,
+              "the card's trajectory is far from the f64 golden chain")
+        # The JAX package's grid (1 << 15), for the record: its hash
+        # aliasing is why the port's default differs (pipelines/odometry.
+        # OdometryConfig).
+        print(f"  not gated: at the JAX package's grid_capacity 1 << 15, "
+              f"aligned rmse {evalio.ate(jest, gold, align=True)[0]:.4g} m, "
+              f"unaligned max {np.linalg.norm(jest - gold, axis=1).max():.4g}"
+              f" m")
+        r256, _ = evalio.ate(est256, gold256, align=True)
+        e256 = np.linalg.norm(est256 - gold256, axis=1)
+        print(f"  odometry-256k vs its golden chain (not gated; scan 10 is "
+              f"an edge of the data; {float(job.get()['o_s']):.1f} s): "
+              f"aligned rmse {r256:.4g} m, unaligned max {e256.max():.4g} m "
+              f"at scan {int(e256.argmax())}, per scan "
+              f"{np.round(e256, 5).tolist()}")
 
     # 18. The app end to end: 6 scans as PCDs, batch, stream with
     #     checkpoints, resume.
@@ -790,7 +864,7 @@ def mapping_path(scans, scan_mask, xyzi, mask, cfg, odo_out, a_xyzi,
     check(all(n_map[k] == outs[k][1] for k in outs),
           "map.pcd does not hold the printed point count")
     tmp.cleanup()
-    return map_launch
+    return map_launch, golden_phase
 
 
 def distinct(d2, tol):
@@ -1263,16 +1337,17 @@ def fusion_phase(dev, scans, scan_mask, odo_out):
 
 
 def uwb_phase():
-    """Phase 23: uwb_demo at its defaults on the card."""
+    """Phase 23: uwb_demo on the card at its defaults but a 30 s run (60 s
+    by default; cut for the script's time)."""
     tmp = tempfile.TemporaryDirectory()
     rc, stdout, app_s = run_module("toyslam_tpu_torch.apps.uwb_demo",
-                                   tmp.name)
+                                   tmp.name, "--duration", 30)
     tri = float(re.search(r"trilateration: .*?ATE ([\d.]+) m",
                           stdout).group(1))
     fused = float(re.search(r"ESKF fused .*?ATE ([\d.]+) m",
                             stdout).group(1))
     lines = [ln for ln in stdout.splitlines() if "ATE" in ln]
-    print(f"phase 23 uwb_demo at its defaults ({app_s:.1f} s with the "
+    print(f"phase 23 uwb_demo over 30 s ({app_s:.1f} s with the "
           f"process start): exit {rc}")
     for ln in lines:
         print(f"  {ln}")
@@ -1471,9 +1546,13 @@ def fleet_phase(dev, single_tick_ms):
                                                   steps)[:, 0], ev.amax(1)),
           "lockstep rounds differ from the lanes' most evaluations")
 
-    # Lanes against ndt_odometry alone: the first chunk whole, the last
-    # lane of every other chunk.
-    lanes = list(range(chunk)) + list(range(2 * chunk - 1, B, chunk))
+    # Lanes against ndt_odometry alone: one lane of every other scene of the
+    # first chunk, its start scans in turn, and the last lane of every
+    # other chunk.
+    per = FLEET_LANES // FLEET_SEEDS
+    lanes = sorted({min(per * 2 * s + s % per, chunk - 1)
+                    for s in range(max(chunk // (2 * per), 1))}
+                   | set(range(2 * chunk - 1, B, chunk)))
     t0 = time.perf_counter()
     fused_gap = 0.0
     for b in lanes:
@@ -1485,8 +1564,8 @@ def fleet_phase(dev, single_tick_ms):
         alone = fusion._fused(one, acc[b], gyro[b], dt[b], cfg)
         fused_gap = max(fused_gap, float(
             (out.fused_p[b] - alone.fused_p).abs().max()))
-    print(f"  {len(lanes)} lanes ({lanes[0]}-{chunk - 1} and "
-          f"{lanes[chunk:]}) equal to ndt_odometry alone bit for bit (poses, "
+    print(f"  {len(lanes)} lanes ({lanes}) equal to ndt_odometry alone bit "
+          f"for bit (poses, "
           f"iterations, evaluations, gathers) ({time.perf_counter() - t0:.1f}"
           f" s); fused track vs the lane's own ESKF run max {fused_gap:.3g} m "
           f"(bound {FLEET_FUSED_TOL_M} m)")
@@ -1722,6 +1801,554 @@ def fleet_phase(dev, single_tick_ms):
             "fleet_lane_launches": lane_ms["ndt_terms_packed"]}}
 
 
+def loam_inputs(rays, seed, capacity=None):
+    """64 scans of the LOAM test world's drive (f64 motion step, as the
+    benchmark builds it) at ``rays`` = (rings, rays a ring): (xyzi [S, N,
+    4] f32, mask, ground-truth poses [S, 4, 4])."""
+    from toyslam_tpu_torch.sim import loam_world
+
+    scans, poses = loam_world.drive(LOAM_SCANS, seed, n_rings=rays[0],
+                                    n_per_ring=rays[1],
+                                    step_dtype=np.float64)
+    xyzi, mask = loam_world.pack(scans, capacity)
+    return xyzi, mask, poses
+
+
+def loam_config(rays):
+    from toyslam_tpu_torch.pipelines import loam
+
+    return loam.LoamConfig(n_rings=rays[0], vertical_fov_deg=LOAM_FOV)
+
+
+def smoother_log():
+    """bench.py's smoother log as numpy arrays (f32, as it builds it)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import jax_smoother_refs
+
+    return jax_smoother_refs.bench_log()
+
+
+def smoother_args(log, dtype, dev):
+    import torch
+
+    M = log["p"].shape[0]
+    args = [torch.from_numpy(log[k]).to(dev, dtype)
+            for k in ("acc", "gyro", "dt")]
+    args += [torch.from_numpy(log["valid"]).to(dev),
+             torch.from_numpy(log["t"]).to(dev, dtype),
+             torch.from_numpy(log["p"]).to(dev, dtype),
+             torch.ones(M, dtype=torch.bool, device=dev)]
+    return args
+
+
+def window_fixture_run(dtype, dev):
+    """``tests/test_window.py::test_window_f32_matches_f64``'s loop on its
+    own inputs (tests/fixtures): window 10, 5 Gauss-Newton steps, through
+    the fusion app's keyframe loop. Returns (p, v [13, 3]) f64 numpy."""
+    import torch
+
+    from toyslam_tpu_torch.apps import fusion_demo
+    from toyslam_tpu_torch.estimators import window
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import jax_smoother_refs
+
+    z = np.load(jax_smoother_refs.FIXTURE)
+    n, ipk = z["meas"].shape[0], z["acc"].shape[0] // z["meas"].shape[0]
+    kf = np.arange(ipk - 1, n * ipk, ipk)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    q_start = np.concatenate([z["q0"][None], z["quat"][kf[:-1] + 1]], 0)
+    est = fusion_demo.smooth(
+        t(z["acc"].reshape(n, ipk, 3)), t(z["gyro"].reshape(n, ipk, 3)),
+        t(np.full((n, ipk), 1.0 / 200.0)),
+        torch.ones((n, ipk), dtype=torch.bool, device=dev), t(z["meas"]),
+        t(np.arange(n, dtype=np.float64)), t(q_start), t(z["quat"][kf]),
+        window.WindowConfig(window_size=10, gn_iterations=5, pos_sigma=0.05))
+    return est.p.double().cpu().numpy(), est.v.double().cpu().numpy()
+
+
+def host_references():
+    """The f64 runs on the host that phases 25 and 26 hold the card's f32
+    runs against: loam-bench through loam_odometry
+    (and its f64 feature extraction scan by scan), smoother-w20 through
+    batch_fusion, and the window test's inputs. Runs in a process of its
+    own while the card works through the earlier phases (``HostJob``)."""
+    import torch
+
+    from toyslam_tpu_torch.core.pointcloud import PointCloud
+    from toyslam_tpu_torch.pipelines import batch_fusion, loam
+
+    torch.set_num_threads(HOST_REF_THREADS)
+    out = {}
+    for name, rays, seed, cap in LOAM_CELLS:
+        xyzi, mask, _ = loam_inputs(rays, seed, cap)
+        x = torch.from_numpy(xyzi).double()
+        m = torch.from_numpy(mask)
+        cfg = loam_config(rays)
+        t0 = time.perf_counter()
+        lo = loam.loam_odometry(x, m, cfg)
+        out[f"{name}_s"] = time.perf_counter() - t0
+        out[f"{name}_p"] = lo.positions.numpy()
+        out[f"{name}_q"] = lo.quaternions.numpy()
+        out[f"{name}_kf"] = int(lo.n_keyframes)
+    xyzi, mask, _ = loam_inputs(LOAM_BENCH, LOAM_BENCH_SEED)
+    x = torch.from_numpy(xyzi).double()
+    m = torch.from_numpy(mask)
+    cfg = loam_config(LOAM_BENCH)
+    for k in range(LOAM_SCANS):
+        cloud = PointCloud(x[k], m[k])
+        org = loam.organize_scan(cloud, cfg)
+        f = loam.organize_and_extract(cloud, cfg)
+        for name, val in (("xyz", org.xyz), ("curv", org.curvature),
+                          ("cur_ok", org.cur_ok), ("edge_thr", org.edge_thr),
+                          ("surf_thr", org.surf_thr),
+                          ("edge", f.edge_xyz[f.edge_mask]),
+                          ("surf", f.surf_xyz[f.surf_mask])):
+            out[f"org{k}_{name}"] = val.numpy()
+    t0 = time.perf_counter()
+    bf = batch_fusion.batch_fusion(
+        *smoother_args(smoother_log(), torch.float64, "cpu"),
+        config=batch_fusion.BatchFusionConfig())
+    out["smoother_s"] = time.perf_counter() - t0
+    out["smoother_p"], out["smoother_v"] = bf.kf_p.numpy(), bf.kf_v.numpy()
+    out["window_p"], out["window_v"] = window_fixture_run(torch.float64,
+                                                          "cpu")
+    return out
+
+
+def golden_chains(inputs):
+    """The f64 golden chains of phase 17 from the clouds in ``inputs``
+    (g0.. the golden sequence's, o0.. odometry-256k's; ``ndt`` the NDT
+    configuration's resolution, step, epsilon and iteration cap)."""
+    res, step, eps, iters = inputs["ndt"]
+    ncfg = SimpleNamespace(resolution=float(res), step_size=float(step),
+                           transformation_epsilon=float(eps),
+                           max_iterations=int(iters))
+    out = {}
+    for key in ("g", "o"):
+        clouds = [inputs[f"{key}{k}"] for k in range(sum(
+            1 for name in inputs if name[0] == key and name[1:].isdigit()))]
+        t0 = time.perf_counter()
+        out[key] = golden_chain(clouds, ncfg)
+        out[f"{key}_s"] = time.perf_counter() - t0
+    return out
+
+
+HOST_JOBS = {"references": lambda inputs: host_references(),
+             "golden": golden_chains}
+JOBS = []  # started host jobs, stopped at exit
+
+
+class HostJob:
+    """A host computation of ``HOST_JOBS`` in a process of its own
+    (``chip_smoke.py --host-job KIND IN OUT``), started now and read with
+    ``get()``."""
+
+    def __init__(self, kind, inputs=None):
+        self.dir = tempfile.TemporaryDirectory()
+        d = Path(self.dir.name)
+        np.savez(d / "in.npz", **(inputs or {}))
+        self.path = d / "out.npz"
+        self.log = open(d / "log", "w")
+        self.kind = kind
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--host-job",
+             kind, str(d / "in.npz"), str(self.path)],
+            stdout=self.log, stderr=subprocess.STDOUT,
+            cwd=Path(__file__).resolve().parent)
+        self.data = None
+        JOBS.append(self)
+
+    def get(self):
+        if self.data is None:
+            rc = self.proc.wait(timeout=APP_TIMEOUT_S)
+            self.log.close()
+            check(rc == 0, f"the host job {self.kind} failed: "
+                  + (Path(self.dir.name) / "log").read_text()[-2000:])
+            self.data = dict(np.load(self.path))
+            self.waited_s = time.perf_counter() - self.t0
+        return self.data
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if not self.log.closed:
+            self.log.close()
+        self.dir.cleanup()
+
+
+def host_job(kind, in_path, out_path):
+    np.savez(out_path, **HOST_JOBS[kind](dict(np.load(in_path))))
+
+
+def loam_keyframes(p, q, cfg):
+    """The keyframe choice of loam_odometry replayed on its output poses
+    (p [S, 3], wxyz q [S, 4], f64 numpy): (is_kf [S] bool, distance and
+    angle from the last keyframe [S])."""
+    import torch
+
+    from toyslam_tpu_torch.core import se3
+
+    rot = se3.quat_to_rot(torch.from_numpy(np.ascontiguousarray(q))).numpy()
+    S = p.shape[0]
+    is_kf = np.zeros(S, bool)
+    dist, ang = np.zeros(S), np.zeros(S)
+    last = 0
+    for k in range(1, S):
+        dist[k] = np.linalg.norm(p[k] - p[last])
+        ang[k] = rotation_angle(rot[k], rot[last])
+        is_kf[k] = (dist[k] > cfg.keyframe_dist or ang[k] > cfg.keyframe_angle
+                    or k % cfg.keyframe_interval == 0)
+        if is_kf[k]:
+            last = k
+    return is_kf, dist, ang
+
+
+def loam_pick_edges(k, card, host, cfg):
+    """The feature picks of scan k on the card (f32) against the host's
+    (f64). A pick on one side only must be an edge of the data: the
+    stencil sums of its window round differently in f32, so where two
+    candidates of a (ring, sector) lie within the f32 error of the
+    curvature measured on this scan (``err``), or a candidate lies within
+    it (plus the thresholds' own f32 error) of its gate, or on a sector
+    border, the two sides may choose differently. Returns (picks that
+    differ, those not shown to be edges)."""
+    key = {}
+    for i, p in enumerate(host["xyz"]):
+        key[tuple(p)] = i
+    c64, c32 = host["curv"], np.full(len(host["curv"]), np.nan)
+    ok = host["cur_ok"]
+    for p, c, o in zip(card["xyz"], card["curv"], card["cur_ok"]):
+        i = key.get(tuple(p))
+        if i is not None and o and ok[i]:
+            c32[i] = c
+    both = ~np.isnan(c32)
+    err = float(np.max(np.abs(c32[both] - c64[both]))) if both.any() else 0.0
+    err_thr = max(float(np.max(np.abs(card["edge_thr"] - host["edge_thr"]))),
+                  float(np.max(np.abs(card["surf_thr"] - host["surf_thr"]))))
+    xyz = host["xyz"]
+    az = (np.arctan2(xyz[:, 1], xyz[:, 0]) + np.pi) / (2 * np.pi) * (
+        cfg.n_sectors)
+    sector = np.clip(az.astype(np.int64), 0, cfg.n_sectors - 1)
+    ring_f = (np.rad2deg(np.arctan2(xyz[:, 2], np.hypot(xyz[:, 0],
+                                                         xyz[:, 1])))
+              - LOAM_FOV[0]) / (LOAM_FOV[1] - LOAM_FOV[0]) * (cfg.n_rings - 1)
+    ring = np.clip(np.round(ring_f), 0, cfg.n_rings - 1).astype(np.int64)
+    seg = ring * cfg.n_sectors + sector
+    differ, unshown = 0, 0
+    for side, sign, thr, quota in (("edge", 1.0, host["edge_thr"],
+                                    cfg.edge_per_sector),
+                                   ("surf", -1.0, host["surf_thr"],
+                                    cfg.surf_per_sector)):
+        a = {tuple(p) for p in card[side]}
+        b = {tuple(p) for p in host[side]}
+        score = sign * c64
+        gate = ok & (c64 > thr if side == "edge" else c64 < thr)
+        for p in a ^ b:
+            differ += 1
+            i = key.get(p)
+            if i is None:
+                unshown += 1
+                continue
+            # The f64 ranking of its (ring, sector): a pick of the f64 run
+            # against the best it left, any other point against the
+            # weakest it took.
+            ranked = np.sort(score[gate & (seg == seg[i])])[::-1]
+            q = min(quota, len(ranked))
+            other = (ranked[q] if len(ranked) > q else None) if p in b else (
+                ranked[q - 1] if q else None)
+            near_cut = other is not None and abs(score[i] - other) <= 2 * err
+            near_gate = abs(c64[i] - thr[i]) <= err + err_thr
+            near_border = (abs(az[i] - np.round(az[i])) < 1e-5
+                           or abs(ring_f[i] % 1.0 - 0.5) < 1e-5)
+            if not (near_cut or near_gate or near_border):
+                unshown += 1
+    return differ, unshown
+
+
+def loam_phase(dev, refs):
+    """Phase 25: loam_odometry over loam-hdl32 and loam-bench on the card
+    (f32) against the host's f64 runs, the feature picks of loam-bench
+    against the host's, and loam_demo at its defaults."""
+    import torch
+
+    from toyslam_tpu_torch.core.pointcloud import PointCloud
+    from toyslam_tpu_torch.pipelines import loam
+
+    card = card_line()
+    ref = None
+    summary = {}
+    for name, rays, seed, cap in LOAM_CELLS:
+        t0 = time.perf_counter()
+        xyzi, mask, poses = loam_inputs(rays, seed, cap)
+        gen_s = time.perf_counter() - t0
+        x = torch.from_numpy(xyzi).to(dev)
+        m = torch.from_numpy(mask).to(dev)
+        cfg = loam_config(rays)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = loam.loam_odometry(x, m, cfg)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        again, syncs = count_syncs(lambda: loam.loam_odometry(x, m, cfg))
+        same = all(torch.equal(a, b) for a, b in zip(out, again))
+        _, _, ops1, _ = device_profile(lambda: loam.loam_odometry(
+            x[:1], m[:1], cfg))
+        _, busy, opsk, top = device_profile(lambda: loam.loam_odometry(
+            x[:LOAM_PROFILE_SCANS + 1], m[:LOAM_PROFILE_SCANS + 1], cfg))
+        per_scan = (opsk - ops1) / LOAM_PROFILE_SCANS
+        print(f"phase 25 {name}: {LOAM_SCANS} scans of {rays[0]} x {rays[1]}"
+              f" rays ({int(mask.sum(1).min())}-{int(mask.sum(1).max())} "
+              f"points, capacity {mask.shape[1]}; {gen_s:.1f} s to ray-cast "
+              f"on the host), f32 on the card: {sec:.2f} s, "
+              f"{(LOAM_SCANS - 1) / sec:.2f} scans/s ((S-1)/sec; {card}), "
+              f"{int(out.n_keyframes)} keyframes; rerun bit-identical: "
+              f"{same}; synchronising calls by line: {syncs}")
+        print(f"  {per_scan:.1f} device operations a scan "
+              f"({busy / LOAM_PROFILE_SCANS:.3f} ms device busy a scan over "
+              f"scans 1-{LOAM_PROFILE_SCANS}, with scan 0's set-up); top "
+              f"device operations: "
+              + "; ".join(f"{k[:60]} x{c} {t:.3f} ms" for k, c, t in top))
+        check(bool(torch.isfinite(out.positions).all()
+                   and torch.isfinite(out.quaternions).all()),
+              f"{name}: a pose is not finite")
+        check(int(out.n_keyframes) >= 1, f"{name}: no keyframe")
+        check(same, f"{name}: a rerun differs")
+        check(not syncs, f"{name}: loam_odometry synchronised with the host")
+
+        # Against the host's f64 run, over the scans it tracks.
+        if ref is None:
+            ref = refs.get()
+            print(f"  host references (f64, {HOST_REF_THREADS} threads, "
+                  f"started {refs.waited_s:.1f} s ago): loam-hdl32 "
+                  f"{float(ref['loam-hdl32_s']):.1f} s, loam-bench "
+                  f"{float(ref['loam-bench_s']):.1f} s, smoother-w20 "
+                  f"{float(ref['smoother_s']):.1f} s")
+        gt = poses[:, :3, 3]
+        p32 = out.positions.double().cpu().numpy()
+        p64, q64 = ref[f"{name}_p"], ref[f"{name}_q"]
+        e32 = np.linalg.norm(p32 - gt, axis=1)
+        e64 = np.linalg.norm(p64 - gt, axis=1)
+        lost = np.flatnonzero(e64 > LOAM_ATE_M)
+        n = int(lost[0]) if len(lost) else LOAM_SCANS
+        ate = float(np.sqrt(np.mean(e32[:n] ** 2)))
+        dpos = np.linalg.norm(p32 - p64, axis=1)
+        kf32, d32, a32 = loam_keyframes(
+            p32, out.quaternions.double().cpu().numpy(), cfg)
+        kf64, d64, a64 = loam_keyframes(p64, q64, cfg)
+        split = np.flatnonzero(kf32 != kf64)
+        first = int(split[0]) if len(split) else LOAM_SCANS
+        # Once the keyframe choices split, the two runs merge into other
+        # maps: the positions are compared before that, and a split is an
+        # edge of the data only within LOAM_SPLIT_SCANS of the f64 run
+        # losing track.
+        n_cmp = min(first, n)
+        print(f"  the host's f64 run tracks scans 0-{n - 1} within "
+              f"{LOAM_ATE_M} m (whole-run ATE: f64 "
+              f"{float(np.sqrt(np.mean(e64 ** 2))):.3f} m, card "
+              f"{float(np.sqrt(np.mean(e32 ** 2))):.3f} m; "
+              f"{int(ref[f'{name}_kf'])} and {int(out.n_keyframes)} "
+              f"keyframes); over them the card's ATE {ate:.4f} m (bound "
+              f"{LOAM_ATE_M}); card f32 vs host f64 positions over scans "
+              f"0-{n_cmp - 1}, before the keyframe choices split: max "
+              f"{dpos[:n_cmp].max():.3g} m at scan "
+              f"{int(dpos[:n_cmp].argmax())}, median "
+              f"{np.median(dpos[:n_cmp]):.3g} m (bound {LOAM_F64_TOL_M})")
+        if first < LOAM_SCANS:
+            k = first
+            print(f"  first split at scan {k}: distance / angle from the last "
+                  f"keyframe f32 {d32[k]:.4f} / {a32[k]:.4f}, f64 "
+                  f"{d64[k]:.4f} / {a64[k]:.4f} (thresholds "
+                  f"{cfg.keyframe_dist} / {cfg.keyframe_angle}); positions "
+                  f"{dpos[k]:.3g} m apart; the f64 run's error there and "
+                  f"after: {np.round(e64[k:k + LOAM_SPLIT_SCANS + 1], 3)}")
+        print(f"  per scan, card f32 vs host f64 (m): "
+              + " ".join(f"{v:.2g}" for v in dpos[:n]))
+        check(n_cmp >= LOAM_MIN_TRACKED, f"{name}: compared over only {n_cmp}"
+                                         f" scans")
+        check(ate < LOAM_ATE_M, f"{name}: ATE {ate} m over the tracked scans")
+        check(dpos[:n_cmp].max() <= LOAM_F64_TOL_M,
+              f"{name}: the card is far from the host's f64 run")
+        check(first >= n or n - first <= LOAM_SPLIT_SCANS,
+              f"{name}: the keyframe choices split at scan {first}, "
+              f"{n - first} scans before the f64 run loses track")
+        summary[name] = {"scans_per_s": (LOAM_SCANS - 1) / sec,
+                         "device_ops_per_scan": per_scan}
+        if name == "loam-bench":
+            bench = (x, m, cfg)
+
+    # loam-bench's feature picks against the host's, scan by scan (they do
+    # not depend on the pose).
+    x, m, cfg = bench
+    differ_scans, differ_total, unshown_total = 0, 0, 0
+    for k in range(LOAM_SCANS):
+        cloud = PointCloud(x[k], m[k])
+        org = loam.organize_scan(cloud, cfg)
+        f = loam.organize_and_extract(cloud, cfg)
+        card_k = {"xyz": org.xyz.double().cpu().numpy(),
+                  "curv": org.curvature.double().cpu().numpy(),
+                  "cur_ok": org.cur_ok.cpu().numpy(),
+                  "edge_thr": org.edge_thr.double().cpu().numpy(),
+                  "surf_thr": org.surf_thr.double().cpu().numpy(),
+                  "edge": f.edge_xyz[f.edge_mask].double().cpu().numpy(),
+                  "surf": f.surf_xyz[f.surf_mask].double().cpu().numpy()}
+        host_k = {key: ref[f"org{k}_{key}"] for key in card_k}
+        differ, unshown = loam_pick_edges(k, card_k, host_k, cfg)
+        differ_scans += differ > 0
+        differ_total += differ
+        unshown_total += unshown
+    print(f"  loam-bench feature picks, card f32 vs host f64: differ in "
+          f"{differ_scans} of {LOAM_SCANS} scans ({differ_total} picks), "
+          f"{unshown_total} not within the f32 error of a tie, a gate or a "
+          f"sector or ring border")
+    check(unshown_total == 0, "a feature pick differs from the f64 run "
+                              "away from an edge of the data")
+
+    tmp = tempfile.TemporaryDirectory()
+    rc, stdout, app_s = run_module("toyslam_tpu_torch.apps.loam_demo",
+                                   tmp.name)
+    tmp.cleanup()
+    ate_app = float(re.search(r"ATE vs synthetic ground truth: ([\d.]+) m",
+                              stdout).group(1))
+    print(f"  loam_demo at its defaults ({app_s:.1f} s with the process "
+          f"start): exit {rc}; "
+          + " | ".join(ln for ln in stdout.splitlines()[:2]))
+    check(rc == 0 and ate_app < LOAM_ATE_M, "loam_demo failed")
+    return summary
+
+
+def smoother_phase(dev, refs):
+    """Phase 26: batch_fusion over smoother-w20 on the card (f32): its
+    rate, host syncs, a resume from a checkpoint, its drift from the
+    host's f64 run; the window test's inputs against JAX's bounds; and
+    fusion_demo at its defaults."""
+    import torch
+
+    from toyslam_tpu_torch.estimators import factors
+    from toyslam_tpu_torch.pipelines import batch_fusion
+    from toyslam_tpu_torch.utils import checkpoint
+
+    card = card_line()
+    log = smoother_log()
+    M = log["p"].shape[0]
+    args = smoother_args(log, torch.float32, dev)
+    cfg = batch_fusion.BatchFusionConfig()
+    K = cfg.window.window_size
+    n = SMOOTHER_RESUME_AT
+    # The run, timed with the sync debug mode on (it costs at a sync only),
+    # in two calls: up to keyframe n, then on from that window in memory
+    # (tests/test_torch_smoother.py holds such a split bit-identical to one
+    # call). Then a resume from that window through a checkpoint file.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+
+    def run():
+        first = batch_fusion.batch_fusion(*(a[:n] for a in args), config=cfg)
+        last = factors.NavState(first.kf_p[-1], first.kf_q[-1],
+                                first.kf_v[-1], first.kf_ba[-1],
+                                first.kf_bg[-1])
+        rest = batch_fusion.batch_fusion(
+            *(a[n:] for a in args), config=cfg, init_window=first.win,
+            init_state=last, initialized=True)
+        return first, last, rest
+
+    (first, last, rest), syncs = count_syncs(run)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    out = batch_fusion.BatchFusionOutput(
+        *(torch.cat([a, b]) for a, b in zip(first[:6], rest[:6])), rest.win)
+    tmp = tempfile.TemporaryDirectory()
+    path = Path(tmp.name) / "window.npz"
+    checkpoint.save_checkpoint(path, first.win)
+    restored = checkpoint.load_checkpoint(path, first.win)
+    tmp.cleanup()
+    resumed = batch_fusion.batch_fusion(
+        *(a[n:] for a in args), config=cfg, init_window=restored,
+        init_state=last, initialized=True)
+    resume_same = all(torch.equal(getattr(resumed, f), getattr(rest, f))
+                      for f in ("kf_p", "kf_q", "kf_v", "kf_ba", "kf_bg",
+                                "reset"))
+    prof_args = [a[n:n + SMOOTHER_PROFILE_KF] for a in args]
+    _, busy, ops, top = device_profile(lambda: batch_fusion.batch_fusion(
+        *prof_args, config=cfg, init_window=restored, init_state=last,
+        initialized=True))
+    n_marg = M - K
+    eigh_syncs = sum(v for k, v in syncs.items() if "estimators/window" in k)
+    other_syncs = {k: v for k, v in syncs.items()
+                   if "estimators/window" not in k}
+    print(f"phase 26 smoother-w20: {M} keyframes of {log['acc'].shape[1]} "
+          f"IMU samples, window {K}, f32 on the card: {sec:.2f} s, "
+          f"{M / sec:.2f} keyframes/s ({card}); resume at keyframe {n} "
+          f"through utils/checkpoint bit-identical to the run: "
+          f"{resume_same}; synchronising calls by line: {syncs} ({n_marg} "
+          f"marginalisations)")
+    print(f"  {ops / SMOOTHER_PROFILE_KF:.1f} device operations a keyframe "
+          f"({busy / SMOOTHER_PROFILE_KF:.3f} ms device busy a keyframe over "
+          f"{SMOOTHER_PROFILE_KF} keyframes of a full window); top device "
+          f"operations: "
+          + "; ".join(f"{k[:60]} x{c} {t:.3f} ms" for k, c, t in top))
+    check(all(bool(torch.isfinite(t).all()) for t in out[:5]),
+          "smoother-w20: an output is not finite")
+    check(resume_same, "smoother-w20: the resume differs from the run")
+    # eigh's, one a marginalisation, and the second call's one read of the
+    # window's count
+    check(eigh_syncs == n_marg and sum(other_syncs.values()) == 1
+          and all("pipelines/batch_fusion" in k for k in other_syncs),
+          "smoother-w20: host syncs other than eigh's (one a "
+          "marginalisation) and a resume's read of the window's count")
+
+    ref = refs.get()
+    p32 = out.kf_p.double().cpu().numpy()
+    dp = np.linalg.norm(p32 - ref["smoother_p"], axis=1)
+    dv = np.linalg.norm(out.kf_v.double().cpu().numpy() - ref["smoother_v"],
+                        axis=1)
+
+    def rms(a):
+        return float(np.sqrt(np.mean(np.sum((a - log["p"]) ** 2, 1))))
+
+    print(f"  card f32 vs host f64: position max {dp.max():.4f} m, velocity "
+          f"median {np.median(dv):.4f} m/s (the JAX package's own f32 vs "
+          f"f64 on this log: {JAX_DRIFT_POS_M:.4f} m, {JAX_DRIFT_VEL:.4f} "
+          f"m/s; bounds twice those); RMS from the fixes f32 {rms(p32):.4f}"
+          f" m, f64 {rms(ref['smoother_p']):.4f} m")
+    check(dp.max() <= 2 * JAX_DRIFT_POS_M
+          and np.median(dv) <= 2 * JAX_DRIFT_VEL,
+          "smoother-w20: the card's f32 drifts from f64 more than twice as "
+          "far as the JAX package's")
+    wp, wv = window_fixture_run(torch.float32, dev)
+    wdp = np.linalg.norm(wp - ref["window_p"], axis=1)
+    wdv = np.linalg.norm(wv - ref["window_v"], axis=1)
+    print(f"  tests/test_window.py's f32-vs-f64 inputs (window 10): card f32"
+          f" vs host f64 position max {wdp.max():.3g} m (bound "
+          f"{WINDOW_F32_POS_M}), velocity median {np.median(wdv):.3g} "
+          f"(bound {WINDOW_F32_VEL_MEDIAN}), after keyframe 6 max "
+          f"{wdv[6:].max():.3g} (bound {WINDOW_F32_VEL_LATE})")
+    check(wdp.max() < WINDOW_F32_POS_M
+          and np.median(wdv) < WINDOW_F32_VEL_MEDIAN
+          and wdv[6:].max() < WINDOW_F32_VEL_LATE,
+          "the window test's inputs: f32 on the card is outside the JAX "
+          "test's bounds")
+
+    tmp = tempfile.TemporaryDirectory()
+    rc, stdout, app_s = run_module("toyslam_tpu_torch.apps.fusion_demo",
+                                   tmp.name)
+    tmp.cleanup()
+    print(f"  fusion_demo at its defaults ({app_s:.1f} s with the process "
+          f"start): exit {rc}")
+    for ln in stdout.splitlines()[:4]:
+        print(f"    {ln}")
+    check(rc == 0, "fusion_demo failed its gate (smoothed RMSE below the "
+                   "raw fixes')")
+    return {"keyframes_per_s": M / sec,
+            "device_ops_per_keyframe": ops / SMOOTHER_PROFILE_KF,
+            "eigh_syncs": eigh_syncs}
+
+
 def main() -> int:
     import torch
 
@@ -1743,6 +2370,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
+    refs = HostJob("references")  # f64 host runs for phases 25-26
     card = card_line()
     print(f"device: {torch.cuda.get_device_name(0)} | {card} | torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
@@ -2475,7 +3103,8 @@ def main() -> int:
           f"{bounds['lane_row_sum'][0]:.4f} ms")
     del got, want, gtab, gids
 
-    map_launch = mapping_path(scans, scan_mask, xyzi, mask, cfg, out,
+    map_launch, golden_phase = mapping_path(scans, scan_mask, xyzi, mask,
+                                            cfg, out,
                               a_xyzi, a_mask)
     app_launch, search_args = align_app_phase(dev, a_xyzi, a_mask, a_gt)
     search_phase(dev, *search_args)
@@ -2488,6 +3117,9 @@ def main() -> int:
     }
     uwb_phase()
     fleet = fleet_phase(dev, tick_ms)
+    golden_phase()
+    loam_phase(dev, refs)
+    smoother_phase(dev, refs)
 
     print(card)
     kernels = [{
@@ -2518,8 +3150,14 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--host-job"]:
+        host_job(*sys.argv[2:5])
+        sys.exit(0)
     try:
         sys.exit(main())
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         sys.exit(2)
+    finally:
+        for job in JOBS:
+            job.stop()

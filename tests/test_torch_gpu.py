@@ -846,3 +846,109 @@ def test_solve_positions_batch_no_host_sync_on_card(cuda):
     p64, _ = trilateration.solve_positions_batch(*args, config=cfg)
     assert p.is_cuda and p.shape == (600, 3) and bool(torch.isfinite(rms).all())
     assert float((p.double().cpu() - p64).abs().max()) < 1e-3
+
+
+def test_loam_odometry_no_host_sync_on_card(cuda):
+    """loam_odometry over 5 scans of the LOAM test world (16 x 360 rays)
+    on the card in f32 makes no host synchronisation and lands within 1e-4
+    m of the f64 run on the CPU (CPU f32 against f64: 8.6e-7 m over 6
+    scans; a feature pick that flips between f32 and f64 moves a pose by
+    more), with the same keyframes."""
+    from toyslam_tpu_torch.pipelines import loam
+    from toyslam_tpu_torch.sim import loam_world
+
+    scans, poses = loam_world.drive(5, 3, step_dtype=np.float64)
+    xyzi, mask = loam_world.pack(scans)
+    cfg = loam.LoamConfig(n_rings=16, vertical_fov_deg=(-25.0, 5.0))
+    x, m = torch.from_numpy(xyzi), torch.from_numpy(mask)
+    xc, mc = x.to(cuda), m.to(cuda)
+    out = _no_host_sync(lambda: loam.loam_odometry(xc, mc, cfg))
+    ref = loam.loam_odometry(x.double(), m, cfg)
+    assert out.positions.is_cuda
+    assert float((out.positions.double().cpu() - ref.positions).abs()
+                 .max()) < 1e-4
+    assert int(out.n_keyframes) == int(ref.n_keyframes)
+    assert float((ref.positions - torch.from_numpy(poses[:, :3, 3])).norm(
+        dim=1).max()) < 0.3
+
+
+def test_batch_fusion_on_card_matches_cpu(cuda):
+    """batch_fusion over a 12-keyframe GPS log (window 6: 6
+    marginalisations, an IMU gap, a divergence reset; the log of
+    tests/test_torch_smoother.py) on the card in f32 against the f64 run
+    on the CPU: positions within 5e-2 m (the card read 2.43e-2 m at the
+    reset keyframe, the CPU's f32 2.1e-3 m), velocity median within
+    tests/test_window.py's 5e-2; the same resets; its only host
+    synchronisations are eigh's, one a marginalisation."""
+    import warnings
+
+    from toyslam_tpu_torch.estimators import preintegration, window
+    from toyslam_tpu_torch.pipelines import batch_fusion
+
+    rng = np.random.default_rng(2)
+    M, R = 12, 20
+    t = (torch.arange(M * R, dtype=torch.float64) + 1) / 200.0
+    from toyslam_tpu_torch.sim import sensors, trajectories
+
+    traj = trajectories.circle(t, radius=3.0, omega=0.4)
+    acc, gyro = sensors.imu_from_noise(
+        traj, torch.from_numpy(rng.normal(size=(M * R, 3))),
+        torch.from_numpy(rng.normal(size=(M * R, 3))))
+    kf = np.arange(R - 1, M * R, R)
+    valid = torch.ones((M, R), dtype=torch.bool)
+    valid[6] = False
+    p = traj["pos"][kf] + 0.1 * torch.from_numpy(rng.normal(size=(M, 3)))
+    p[9, 0] += 4.0
+    ok = torch.ones(M, dtype=torch.bool)
+    log = [acc.reshape(M, R, 3), gyro.reshape(M, R, 3),
+           torch.full((M, R), 0.005, dtype=torch.float64), valid,
+           t[kf], p, ok]
+    vel = traj["vel"][kf] + 0.05 * torch.from_numpy(rng.normal(size=(M, 3)))
+    cfg = batch_fusion.BatchFusionConfig(
+        window=window.WindowConfig(
+            window_size=6, gn_iterations=4, use_gps=True, gps_pos_sigma=0.1,
+            gps_pos_z_sigma_factor=1.0, use_gps_velocity=True,
+            gps_vel_sigma=0.05, simplified_first_n=3),
+        preint=preintegration.PreintegrationParams(acc_noise=0.03,
+                                                   gyro_noise=0.002),
+        max_position_error=2.0)
+
+    def card(a):
+        return a.to(cuda, torch.float32) if a.is_floating_point() else a.to(
+            cuda)
+
+    args = [card(a) for a in log]
+    vel_c, ok_c = card(vel), card(ok)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = batch_fusion.batch_fusion(*args, meas_v=vel_c,
+                                            meas_v_valid=ok_c, config=cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in seen if "synchroniz" in str(w.message)
+             and "debug mode" not in str(w.message)]
+    ref = batch_fusion.batch_fusion(*log, meas_v=vel, meas_v_valid=ok,
+                                    config=cfg)
+    assert len(syncs) == M - 6
+    assert torch.equal(out.reset.cpu(), ref.reset) and bool(ref.reset[9])
+    dp = (out.kf_p.double().cpu() - ref.kf_p).norm(dim=1)
+    dv = (out.kf_v.double().cpu() - ref.kf_v).norm(dim=1)
+    assert float(dp.max()) < 5e-2 and float(dv.median()) < 5e-2
+
+
+def test_convert_smoother_state_defaults_to_card(cuda):
+    from toyslam_tpu_torch.estimators import window
+
+    win = window.window_init(window.WindowConfig(window_size=4),
+                             torch.float64, "cpu")
+    nav = convert.nav_state(window._state_at(win.states, 0)._asdict())
+    assert all(x.is_cuda and x.dtype == torch.float64 for x in nav)
+    fields = {k: getattr(win, k) for k in win._fields}
+    moved = convert.sliding_window(fields)
+    assert moved.count.is_cuda and moved.states.p.is_cuda
+    assert moved.preints.covariance.is_cuda and moved.prior_state.q.is_cuda
+    assert torch.equal(moved.preints.covariance.cpu(),
+                       win.preints.covariance)

@@ -162,7 +162,8 @@ def test_port_imports_without_jax():
     """Every module of the port imports (the apps among them, without
     running), and an NDT, an ICP and a GICP align, the mapping app with its
     checkpoints, ``icp_slam``, ``ndt_eskf_fusion``, the fleet
-    (``fleet_fusion``) and ``parallel/batch.vmap_align`` run, with JAX made
+    (``fleet_fusion``), ``parallel/batch.vmap_align``, ``loam_odometry``
+    and ``batch_fusion`` (with a marginalisation) run, with JAX made
     unimportable."""
     code = """
 import sys
@@ -222,6 +223,23 @@ pair = batch.vmap_align(scans[:2, :500], smask[:2, :500], scans[1:, :500],
                         smask[1:, :500], ndt.NDTConfig(resolution=2.0))
 assert pair.converged.all()
 assert batch.make_mesh(device="cpu") == [torch.device("cpu")]
+from toyslam_tpu_torch.pipelines import batch_fusion, loam
+from toyslam_tpu_torch.sim import loam_world
+lscans, _ = loam_world.drive(2, 0, n_per_ring=90, n_rings=8)
+lx, lm = loam_world.pack(lscans)
+lo = loam.loam_odometry(torch.from_numpy(lx), torch.from_numpy(lm),
+                        loam.LoamConfig(n_rings=8, vertical_fov_deg=(-25, 5)))
+assert torch.isfinite(lo.positions).all() and int(lo.n_keyframes) >= 1
+bf = batch_fusion.batch_fusion(
+    acc[:12].reshape(3, 4, 3), imu[:12].reshape(3, 4, 3),
+    torch.full((3, 4), 0.01, dtype=torch.float64),
+    torch.ones((3, 4), dtype=torch.bool),
+    torch.arange(3, dtype=torch.float64) * 0.04,
+    torch.zeros((3, 3), dtype=torch.float64), torch.ones(3, dtype=torch.bool),
+    config=batch_fusion.BatchFusionConfig(
+        window=batch_fusion.window.WindowConfig(window_size=2,
+                                                gn_iterations=1)))
+assert torch.isfinite(bf.kf_p).all() and bool(bf.win.prior_valid)
 assert not any(k == "jax" or k.startswith(("jax.", "toyslam_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("ok")

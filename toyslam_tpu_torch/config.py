@@ -1,9 +1,12 @@
-"""Configuration files (the odometry part of ``toyslam_tpu/config.py``).
+"""Configuration files (the part of ``toyslam_tpu/config.py`` the port
+runs).
 
 A config file is a JSON object of ``{kind: {param: value}}`` sections, as
 the JAX package reads and writes them (``configs/example.json``). The port
-reads its ``odometry`` section; unspecified parameters keep their
-defaults, an unknown one raises, and the JAX package's TPU dispatch knobs
+reads its ``odometry``, ``loam``, ``window``, ``preintegration`` and
+``batch_fusion`` sections under those names; unspecified parameters keep
+their defaults, an unknown one raises, a JSON list becomes a tuple where
+the default is one, and the JAX package's TPU dispatch knobs
 (``use_pallas``, ``repack_pallas``), which have no counterpart, are
 skipped.
 """
@@ -14,9 +17,20 @@ import json
 from pathlib import Path
 from typing import Any
 
+from toyslam_tpu_torch.estimators.preintegration import PreintegrationParams
+from toyslam_tpu_torch.estimators.window import WindowConfig
+from toyslam_tpu_torch.pipelines.batch_fusion import BatchFusionConfig
+from toyslam_tpu_torch.pipelines.loam import LoamConfig
 from toyslam_tpu_torch.pipelines.odometry import OdometryConfig
 
 _JAX_DISPATCH = frozenset({"use_pallas", "repack_pallas"})
+SECTIONS = {
+    "odometry": OdometryConfig,
+    "loam": LoamConfig,
+    "window": WindowConfig,
+    "preintegration": PreintegrationParams,
+    "batch_fusion": BatchFusionConfig,
+}
 
 
 def from_dict(cls, data: dict):
@@ -29,13 +43,20 @@ def from_dict(cls, data: dict):
         if key not in cls._fields:
             raise KeyError(f"{cls.__name__} has no parameter '{key}'")
         cur = getattr(base, key)
-        updates[key] = (from_dict(type(cur), val)
-                        if hasattr(cur, "_fields") and isinstance(val, dict)
-                        else val)
+        if hasattr(cur, "_fields") and isinstance(val, dict):
+            val = from_dict(type(cur), val)
+        elif isinstance(cur, tuple) and not hasattr(cur, "_fields"):
+            val = tuple(val)
+        updates[key] = val
     return base._replace(**updates)
+
+
+def load_section(path: str | Path, kind: str):
+    """The ``kind`` section of a config file as its config (one of
+    ``SECTIONS``)."""
+    return from_dict(SECTIONS[kind], json.loads(Path(path).read_text())[kind])
 
 
 def load_odometry(path: str | Path) -> OdometryConfig:
     """The ``odometry`` section of a config file as an OdometryConfig."""
-    return from_dict(OdometryConfig,
-                     json.loads(Path(path).read_text())["odometry"])
+    return load_section(path, "odometry")

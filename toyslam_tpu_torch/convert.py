@@ -17,8 +17,14 @@ import torch
 
 from toyslam_tpu_torch.core.pointcloud import PointCloud
 from toyslam_tpu_torch.estimators.eskf import ESKFParams, ESKFState
+from toyslam_tpu_torch.estimators.factors import NavState
+from toyslam_tpu_torch.estimators.preintegration import (PreintegrationParams,
+                                                          Preintegrated)
+from toyslam_tpu_torch.estimators.window import SlidingWindow, WindowConfig
+from toyslam_tpu_torch.pipelines.batch_fusion import BatchFusionConfig
 from toyslam_tpu_torch.pipelines.fusion import FusionConfig
 from toyslam_tpu_torch.pipelines.icp_slam import IcpSlamConfig
+from toyslam_tpu_torch.pipelines.loam import LoamConfig
 from toyslam_tpu_torch.pipelines.odometry import (MappingState,
                                                   OdometryConfig,
                                                   OdometryState)
@@ -119,3 +125,42 @@ def mapping_state(fields, device="cuda") -> MappingState:
     m = _fields(fields["map_cloud"])
     return MappingState(odometry_state(fields["odometry"], device),
                         point_cloud(m["xyzi"], m["mask"], device))
+
+
+def loam_config(fields: Mapping) -> LoamConfig:
+    return _shared_fields(LoamConfig, fields)
+
+
+def window_config(fields: Mapping) -> WindowConfig:
+    return _shared_fields(WindowConfig, fields)
+
+
+def preintegration_params(fields: Mapping) -> PreintegrationParams:
+    return _shared_fields(PreintegrationParams, fields)
+
+
+def batch_fusion_config(fields: Mapping) -> BatchFusionConfig:
+    return _nested(BatchFusionConfig, fields, window=window_config,
+                   preint=preintegration_params)
+
+
+def nav_state(fields, device="cuda") -> NavState:
+    """The fields of the JAX ``NavState`` -> the port's, on ``device``."""
+    fields = _fields(fields)
+    return NavState(**{k: _tensor(fields[k], device)
+                       for k in NavState._fields})
+
+
+def sliding_window(fields, device="cuda") -> SlidingWindow:
+    """The fields of the JAX ``SlidingWindow`` (its states, preintegrals
+    and prior state as NamedTuples or their fields) -> the port's, on
+    ``device``."""
+    fields = _fields(fields)
+    out = {k: _tensor(fields[k], device) for k in SlidingWindow._fields
+           if k not in ("states", "preints", "prior_state")}
+    pre = _fields(fields["preints"])
+    return SlidingWindow(
+        states=nav_state(fields["states"], device),
+        preints=Preintegrated(**{k: _tensor(pre[k], device)
+                                 for k in Preintegrated._fields}),
+        prior_state=nav_state(fields["prior_state"], device), **out)

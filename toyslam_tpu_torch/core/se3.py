@@ -193,7 +193,11 @@ def quat_normalize(q):
 def quat_to_rot(q):
     """Rotation [..., 3, 3] of (not necessarily unit) quaternions."""
     w, x, y, z = q.unbind(-1)
-    s = 2.0 / (w * w + x * x + y * y + z * z)
+    # s = 2 / n, bit for bit (doubling is exact): without an operation
+    # between a tensor and a Python number, which torch.func differentiates
+    # through a slow decomposition (and, for a 0-d value, in float64).
+    inv = torch.reciprocal(w * w + x * x + y * y + z * z)
+    s = inv + inv
     wx, wy, wz = s * w * x, s * w * y, s * w * z
     xx, xy, xz = s * x * x, s * x * y, s * x * z
     yy, yz, zz = s * y * y, s * y * z, s * z * z
@@ -206,10 +210,12 @@ def quat_to_rot(q):
 
 def quat_boxplus(q, dtheta):
     """q [+] dtheta with the small-angle right-multiplied delta quaternion
-    dq = [1, dtheta / 2], renormalised."""
-    half = 0.5 * dtheta
-    dq = torch.cat([torch.ones_like(half[..., :1]), half], -1)
-    return quat_normalize(quat_multiply(q, dq))
+    dq = [1, dtheta / 2], renormalised. It multiplies by 2 dq = [2, dtheta]
+    instead, which gives the same bits (doubling is exact and the norm
+    cancels it) with no operation between a tensor and a Python number
+    (see :func:`quat_to_rot`)."""
+    two = torch.full_like(dtheta[..., :1], 2.0)
+    return quat_normalize(quat_multiply(q, torch.cat([two, dtheta], -1)))
 
 
 def quat_rotate(q, v):
