@@ -39,7 +39,12 @@ just after:
   ESKF over lanes), its chunks swept, and ``parallel/batch.vmap_align``
   on the lanes' first pairs (K1 with a lane axis);
 - LOAM and the sliding-window smoother, which run no kernel of their own
-  (phases 25-26).
+  (phases 25-26);
+- GNSS, no kernel of its own either (phase 27): ``bench.py``'s 1024-epoch
+  log through ``gnss/local.prep_epochs`` (f64) and
+  ``solve_epochs_local`` (f32) on the card, ``gnss/pipeline.run_epochs``
+  in f64 on the card, and the apps ``gnss_demo``, ``raim_demo`` and
+  ``urban_demo`` at their defaults.
 
 It checks that every align converged and improved on its identity guess
 against the generated ground truth, that the card's exact NDT align lands
@@ -102,9 +107,17 @@ batch_fusion`` over the benchmark's 256-keyframe log, window 20, then
 from a checkpoint at keyframe 128 bit-identical to the run, host syncs
 only from ``eigh`` (one a marginalisation), the f32 drift from the host's
 f64 run within twice the JAX package's own on that log, the JAX window
-test's inputs within that test's f32-vs-f64 bounds, and the app's gate. The f64 host runs of phases 25-26 go in a process of their
-own, started at the beginning. The line
-before the card's line is ``{"kernels": [...]}``; the last line is
+test's inputs within that test's f32-vs-f64 bounds, and the app's gate.
+For GNSS (phase 27) it checks that every epoch of the f32 solve is
+valid, that the solve makes no host sync and reruns bit-identically, that
+it lies within the JAX package's f32-vs-f64 bounds (0.1 m, 0.1 m, 0.05
+m/s, DOP rtol 2e-2, equal satellite counts) of the host's f64 local
+solve on every epoch and of its f64 ``run_epochs`` on the epochs whose
+masks agree (at most ``GNSS_MASK_SPLIT_MAX`` do not), that
+``run_epochs`` in f64 on the card lands within ``GNSS_F64_POS_M`` of the
+host's, and that the three apps pass their gates (``gnss_demo``'s ATE
+below 5 m). The f64 host runs of phases 25-27 go in processes of their
+own, started at the beginning. The line before the card's line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it. There is no CPU path: without a CUDA
 device the script exits with 1.
@@ -238,6 +251,31 @@ SMOOTHER_PROFILE_KF = 4
 JAX_DRIFT_POS_M, JAX_DRIFT_VEL = 0.497061104964118, 2.160991981365262
 WINDOW_F32_POS_M, WINDOW_F32_VEL_MEDIAN, WINDOW_F32_VEL_LATE = 1e-2, 5e-2, 0.15
 HOST_REF_THREADS = 3
+# Phase 27, GNSS: gnss-1024, bench.py:461-527's log (1024 epochs x 24
+# satellites, numpy seed 4), f64 prep and the f32 local-frame solve on the
+# card, held to the port's f64 run_epochs on the host within the JAX
+# package's own f32-vs-f64 bounds (tests/test_gnss_local.py:32-62).
+GNSS_EPOCHS, GNSS_SATS, GNSS_SEED = 1024, 24, 4
+GNSS_POS_M, GNSS_CB_M, GNSS_VEL = 0.1, 0.1, 0.05
+GNSS_DOP_RTOL = 2e-2
+GNSS_ATE_M = 5.0  # the app's ENU ATE (test_local_f32_matches_f64_pipeline)
+# prep_epochs masks elevations at the anchor, run_epochs at each epoch's
+# warm start (as in the JAX package): 1.1 km from the anchor, a satellite
+# near the 10 deg cut-off enters one and not the other at epochs 740-741
+# of gnss-1024 (1.618 m apart in JAX's own f32-vs-f64 run too). The card
+# is held to the host's f64 local solve (the same masks) on every epoch,
+# and to run_epochs on the epochs whose masks agree; at most this many
+# may disagree (twice the 2 seen).
+GNSS_MASK_SPLIT_MAX = 4
+GNSS_PROFILE_EPOCHS = 16
+# run_epochs in f64 on the card over the log's first epochs (27.6 s for
+# all 1024 on the card) against the same on the host (its first epochs of
+# the whole run: each epoch depends on the earlier ones only), in m and
+# m/s: the two differ only by the rounding of their sin/cos/atan2 and the
+# order of their sums (NVIDIA H100 80GB HBM3, 700 W, over 1024 epochs:
+# 2.14e-8 m, 4.51e-12 m/s).
+GNSS_F64_EPOCHS = 256
+GNSS_F64_POS_M, GNSS_F64_VEL = 1e-7, 2.5e-11
 NEW_PATH_KERNELS = ("ndt_terms_gathered", "ndt_gather_repack",
                     "ndt_terms_packed", "nearest_neighbor", "neg_dist_bf16",
                     "gicp_terms")
@@ -1937,8 +1975,100 @@ def golden_chains(inputs):
     return out
 
 
+def gnss_bench_log(dev):
+    """bench.py:461-527's GNSS log with the port's f64 functions on ``dev``
+    from the same numpy draws: (store, iono, the run_epochs channels, ref
+    ECEF [3], truth [E, 3])."""
+    import math
+
+    import torch
+
+    from toyslam_tpu_torch.core.geodesy import (SPEED_OF_LIGHT,
+                                                ecef_to_enu_rotation,
+                                                lla_to_ecef)
+    from toyslam_tpu_torch.gnss import atmosphere, pipeline, spp
+    from toyslam_tpu_torch.gnss.ephemeris import (GpsEphemeris,
+                                                  sat_pos_vel_clock)
+    from toyslam_tpu_torch.gnss.local import W_C
+
+    E, S = GNSS_EPOCHS, GNSS_SATS
+    f64 = torch.float64
+    rng = np.random.default_rng(GNSS_SEED)
+
+    def t(v):
+        return torch.as_tensor(v, dtype=f64, device=dev)
+
+    lat0, lon0 = t(math.radians(22.3)), t(math.radians(114.17))
+    ref = lla_to_ecef(lat0, lon0, t(50.0))
+    R = ecef_to_enu_rotation(lat0, lon0)
+    v_ecef = spp.mat_vec(R.T, t([1.5, 0.4, 0.0]))
+    eph = pipeline.synthetic_constellation(S, toe=1000.0, device=dev)
+    store = pipeline.store_init(device=dev)
+    for k in range(S):
+        store = store.update(GpsEphemeris(*(x[k] for x in eph)))
+    iono = atmosphere.IonoParams(alpha=t([0.0] * 4), beta=t([0.0] * 4))
+    steps = torch.arange(E, dtype=f64, device=dev)
+    tows = 1000.0 + steps
+    pos = ref + v_ecef * steps[:, None]
+    sat = sat_pos_vel_clock(eph, tows[:, None].expand(E, S))
+    r0 = torch.linalg.norm(sat["pos"] - pos[:, None], dim=-1)
+    for _ in range(2):
+        sat = sat_pos_vel_clock(eph, tows[:, None] - r0 / SPEED_OF_LIGHT)
+        r0 = torch.linalg.norm(sat["pos"] - pos[:, None], dim=-1)
+    el = torch.asin((spp.mat_vec(R, sat["pos"] - pos[:, None])[..., 2]
+                     / r0).clamp(-1, 1))
+    sp, vel = sat["pos"], sat["vel"]
+    sagnac = -W_C * (pos[:, None, 0] * sp[..., 1]
+                     - pos[:, None, 1] * sp[..., 0])
+    pr = (r0 + 42.0 + sagnac - sat["clock_bias"] * SPEED_OF_LIGHT
+          - eph.tgd * SPEED_OF_LIGHT
+          + 2.3 / torch.sin(el.abs()).clamp(min=0.1)
+          + t(rng.normal(0, 1.5, (E, S))))
+    los = (sp - pos[:, None]) / r0[..., None]
+    sag_rate = W_C * (vel[..., 0] * pos[:, None, 1]
+                      - vel[..., 1] * pos[:, None, 0])
+    rr = ((los * (v_ecef - vel)).sum(-1) - sag_rate
+          + sat["clock_drift"] * SPEED_OF_LIGHT
+          + t(rng.normal(0, 0.05, (E, S))))
+    prn = torch.arange(1, S + 1, dtype=torch.int32, device=dev).expand(E, S)
+    channels = (tows, prn, pr, rr, torch.full((E, S), 45.0, dtype=f64,
+                                              device=dev), el > 0)
+    return store, iono, channels, ref, pos
+
+
+def gnss_host_reference():
+    """gnss-1024 through the port's f64 run_epochs and its f64 local solve
+    (prep_epochs and solve_epochs_local in f64) on the host, phase 27's
+    references (a process of its own, ``HostJob``)."""
+    import torch
+
+    from toyslam_tpu_torch.gnss import local, pipeline
+
+    torch.set_num_threads(HOST_REF_THREADS)
+    store, iono, channels, ref, _ = gnss_bench_log("cpu")
+    cfg = pipeline.EpochConfig(apply_iono_correction=False)
+    t0 = time.perf_counter()
+    sols = pipeline.run_epochs(store, iono, *channels, ref, config=cfg)
+    sec = time.perf_counter() - t0
+    p, v = sols.position, sols.velocity
+    ep = local.prep_epochs(store, iono, *channels, ref, config=cfg,
+                           out_dtype=torch.float64)
+    loc = local.solve_epochs_local(ep, cfg)
+    return {"state": p.state.numpy(), "pdop": p.pdop.numpy(),
+            "hdop": p.hdop.numpy(), "num_sats": p.num_sats.numpy(),
+            "valid": p.valid.numpy(), "vel": v.vel_ecef.numpy(),
+            "vel_valid": v.valid.numpy(), "used": sols.record.used.numpy(),
+            "sec": np.float64(sec),
+            "local_state": torch.cat([ref + loc.delta,
+                                      loc.clock_bias[:, None]], -1).numpy(),
+            "local_vel": loc.vel_ecef.numpy(), "local_pdop": loc.pdop.numpy(),
+            "local_hdop": loc.hdop.numpy(),
+            "local_num_sats": loc.num_sats.numpy()}
+
+
 HOST_JOBS = {"references": lambda inputs: host_references(),
-             "golden": golden_chains}
+             "golden": golden_chains,
+             "gnss": lambda inputs: gnss_host_reference()}
 JOBS = []  # started host jobs, stopped at exit
 
 
@@ -2349,6 +2479,148 @@ def smoother_phase(dev, refs):
             "eigh_syncs": eigh_syncs}
 
 
+def gnss_phase(dev, ref_job):
+    """Phase 27: gnss-1024 through prep_epochs (f64) and solve_epochs_local
+    (f32) on the card, held to the host's f64 run_epochs; run_epochs in f64
+    on the card; the three GNSS apps at their defaults."""
+    import torch
+
+    from toyslam_tpu_torch.gnss import local, pipeline
+
+    card = card_line()
+    E = GNSS_EPOCHS
+    cfg = pipeline.EpochConfig(apply_iono_correction=False)
+    store, iono, channels, ref, truth = gnss_bench_log(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ep = local.prep_epochs(store, iono, *channels, ref, config=cfg)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    # The solve under the sync debug mode, then a timed rerun
+    sol, syncs = count_syncs(lambda: local.solve_epochs_local(ep, cfg))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = local.solve_epochs_local(ep, cfg)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(sol, again))
+    n = GNSS_PROFILE_EPOCHS
+    part = local.LocalEpochs(*(x[:n] for x in ep[:-1]), ep.R_enu)
+    _, busy, ops, top = device_profile(
+        lambda: local.solve_epochs_local(part, cfg))
+    print(f"phase 27 gnss-{E}: {E} epochs x {GNSS_SATS} satellites, f64 "
+          f"prep on the card {prep_s:.3f} s, f32 solve {sec:.3f} s: "
+          f"{E / sec:.1f} epochs/s ({card}); rerun bit-identical: {same}; "
+          f"synchronising calls in the solve: {syncs}")
+    print(f"  {ops / n:.1f} device operations an epoch ({busy / n:.4f} ms "
+          f"device busy an epoch over {n} epochs); top device operations: "
+          + "; ".join(f"{k[:50]} x{c} {t:.3f} ms" for k, c, t in top))
+    check(not syncs, "gnss: the f32 solve synchronised with the host")
+    check(same, "gnss: the rerun differs")
+    check(bool(sol.valid.all()) and bool(sol.vel_valid.all()),
+          "gnss: an epoch's position or velocity is not valid")
+
+    host = ref_job.get()
+    est = torch.cat([ref + sol.delta.double(),
+                     sol.clock_bias.double()[:, None]], -1).cpu().numpy()
+    got = {"vel": sol.vel_ecef.double().cpu().numpy(),
+           "pdop": sol.pdop.double().cpu().numpy(),
+           "hdop": sol.hdop.double().cpu().numpy(),
+           "num_sats": sol.num_sats.cpu().numpy()}
+
+    def gaps(state, vel, pdop, hdop, num_sats, keep):
+        """Max position, clock, velocity and DOP-ratio gaps over the epochs
+        ``keep``, and whether num_sats is equal there."""
+        return (np.linalg.norm(est[keep, :3] - state[keep, :3], axis=1).max(),
+                np.abs(est[keep, 3] - state[keep, 3]).max(),
+                np.linalg.norm(got["vel"][keep] - vel[keep], axis=1).max(),
+                max(np.abs(got["pdop"][keep] / pdop[keep] - 1).max(),
+                    np.abs(got["hdop"][keep] / hdop[keep] - 1).max()),
+                bool(np.array_equal(got["num_sats"][keep], num_sats[keep])))
+
+    def within(g):
+        return (g[0] < GNSS_POS_M and g[1] < GNSS_CB_M and g[2] < GNSS_VEL
+                and g[3] < GNSS_DOP_RTOL and g[4])
+
+    every = np.ones(E, bool)
+    g_loc = gaps(host["local_state"], host["local_vel"], host["local_pdop"],
+                 host["local_hdop"], host["local_num_sats"], every)
+    agree = (ep.valid.cpu().numpy() == host["used"]).all(1)
+    g_run = gaps(host["state"], host["vel"], host["pdop"], host["hdop"],
+                 host["num_sats"], agree)
+    split = np.nonzero(~agree)[0]
+    d_split = np.linalg.norm(est[split, :3] - host["state"][split, :3], axis=1)
+    ate = float(np.sqrt(np.mean(np.sum(
+        (est[:, :3] - truth.cpu().numpy()) ** 2, 1))))
+    for name, g in (("the host's f64 local solve, every epoch", g_loc),
+                    (f"the host's f64 run_epochs ({host['sec']:.2f} s), the "
+                     f"{int(agree.sum())} epochs whose masks agree", g_run)):
+        print(f"  card f32 vs {name}: position max {g[0]:.4g} m (bound "
+              f"{GNSS_POS_M}), clock {g[1]:.4g} m (bound {GNSS_CB_M}), "
+              f"velocity {g[2]:.4g} m/s (bound {GNSS_VEL}), PDOP/HDOP rtol "
+              f"{g[3]:.3g} (bound {GNSS_DOP_RTOL}), num_sats equal {g[4]}")
+    print(f"  epochs whose anchored masks differ from run_epochs': "
+          f"{split.tolist()} (bound {GNSS_MASK_SPLIT_MAX} epochs), position "
+          f"gap there {np.round(d_split, 4).tolist()} m; ATE against the "
+          f"truth {ate:.3f} m")
+    check(within(g_loc), "gnss: the card's f32 solve is outside the JAX "
+          "package's f32-vs-f64 bounds of the host's f64 local solve")
+    check(within(g_run) and len(split) <= GNSS_MASK_SPLIT_MAX,
+          "gnss: the card's f32 solve is outside the JAX package's "
+          "f32-vs-f64 bounds of the host's f64 run_epochs where the masks "
+          "agree, or the masks disagree on too many epochs")
+
+    # run_epochs in f64 on the card against the host's
+    k = GNSS_F64_EPOCHS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sols = pipeline.run_epochs(store, iono, *(c[:k] for c in channels), ref,
+                               config=cfg)
+    torch.cuda.synchronize()
+    f64_s = time.perf_counter() - t0
+    dp64 = np.abs(sols.position.state.cpu().numpy()
+                  - host["state"][:k]).max()
+    dv64 = np.abs(sols.velocity.vel_ecef.cpu().numpy()
+                  - host["vel"][:k]).max()
+    same_valid = (np.array_equal(sols.position.valid.cpu().numpy(),
+                                 host["valid"][:k])
+                  and np.array_equal(sols.velocity.valid.cpu().numpy(),
+                                     host["vel_valid"][:k]))
+    print(f"  run_epochs f64 on the card over epochs 0-{k - 1}: {f64_s:.2f} "
+          f"s ({k / f64_s:.1f} epochs/s); against the host's: state max "
+          f"{dp64:.3g} m (bound {GNSS_F64_POS_M}), velocity {dv64:.3g} m/s "
+          f"(bound {GNSS_F64_VEL}), validity equal {same_valid}")
+    check(dp64 < GNSS_F64_POS_M and dv64 < GNSS_F64_VEL and same_valid,
+          "gnss: run_epochs in f64 on the card differs from the host's")
+
+    apps = {}
+    for name, files in (("gnss_demo", ("gnss_position.csv", "skyplot.jsonl",
+                                       "solution.csv")),
+                        ("raim_demo", ("raim.csv", "ellipse.jsonl")),
+                        ("urban_demo", ("skyplot.jsonl",
+                                        "pseudoranges.csv"))):
+        tmp = tempfile.TemporaryDirectory()
+        rc, stdout, app_s = run_module(f"toyslam_tpu_torch.apps.{name}",
+                                       tmp.name)
+        wrote = all((Path(tmp.name) / f).is_file()
+                    and (Path(tmp.name) / f).stat().st_size > 0
+                    for f in files)
+        tmp.cleanup()
+        apps[name] = app_s
+        print(f"  {name} at its defaults ({app_s:.1f} s with the process "
+              f"start): exit {rc}, wrote {', '.join(files)}: {wrote}")
+        for ln in stdout.splitlines():
+            print(f"    {ln}")
+        check(rc == 0 and wrote, f"{name} failed its gate or wrote no files")
+        if name == "gnss_demo":
+            app_ate = float(re.search(r"ENU ATE vs ground truth: ([\d.]+)",
+                                      stdout).group(1))
+            check(app_ate < GNSS_ATE_M, f"gnss_demo's ATE {app_ate} m")
+    return {"epochs_per_s": E / sec, "ops_per_epoch": ops / n,
+            "busy_ms_per_epoch": busy / n, "f64_epochs_per_s": k / f64_s,
+            "app_s": apps}
+
+
 def main() -> int:
     import torch
 
@@ -2371,6 +2643,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
     refs = HostJob("references")  # f64 host runs for phases 25-26
+    gnss_ref = HostJob("gnss")  # phase 27's f64 run_epochs on the host
     card = card_line()
     print(f"device: {torch.cuda.get_device_name(0)} | {card} | torch "
           f"{torch.__version__} cuda {torch.version.cuda}")
@@ -3120,6 +3393,7 @@ def main() -> int:
     golden_phase()
     loam_phase(dev, refs)
     smoother_phase(dev, refs)
+    gnss_phase(dev, gnss_ref)
 
     print(card)
     kernels = [{

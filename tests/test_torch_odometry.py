@@ -162,9 +162,10 @@ def test_port_imports_without_jax():
     """Every module of the port imports (the apps among them, without
     running), and an NDT, an ICP and a GICP align, the mapping app with its
     checkpoints, ``icp_slam``, ``ndt_eskf_fusion``, the fleet
-    (``fleet_fusion``), ``parallel/batch.vmap_align``, ``loam_odometry``
-    and ``batch_fusion`` (with a marginalisation) run, with JAX made
-    unimportable."""
+    (``fleet_fusion``), ``parallel/batch.vmap_align``, ``loam_odometry``,
+    ``batch_fusion`` (with a marginalisation), GNSS's ``prep_epochs`` and
+    ``solve_epochs_local``, one ``fault_exclusion`` and one
+    ``simulate_urban_epochs`` run, with JAX made unimportable."""
     code = """
 import sys
 sys.modules["jax"] = None
@@ -240,6 +241,29 @@ bf = batch_fusion.batch_fusion(
         window=batch_fusion.window.WindowConfig(window_size=2,
                                                 gn_iterations=1)))
 assert torch.isfinite(bf.kf_p).all() and bool(bf.win.prior_valid)
+from toyslam_tpu_torch.apps import gnss_demo
+from toyslam_tpu_torch.gnss import local, pipeline as gpipe, raim
+from toyslam_tpu_torch.sim import gps, urban
+cpu = torch.device("cpu")
+store, iono, ch, ref, _, gt = gnss_demo.simulate(6, 24, 1.5, 0, 1.5, cpu)
+gcfg = gpipe.EpochConfig(apply_iono_correction=False)
+gsol = local.solve_epochs_local(local.prep_epochs(store, iono, *ch, ref,
+                                                  config=gcfg), gcfg)
+assert gsol.valid.all()
+assert (gsol.delta.double() + ref - gt).norm(dim=1).max() < 10
+sim = gps.simulate_constellation(torch.Generator().manual_seed(0), ref,
+                                 gps.GpsSimConfig(n_sats=8), fault_index=2)
+excl, _, _ = raim.fault_exclusion(sim["sat_pos"], sim["pseudoranges"],
+                                  torch.ones(8, dtype=torch.bool),
+                                  torch.cat([ref, ref.new_zeros(1)]))
+assert int(excl) == 2
+city = urban.make_city(torch.Generator().manual_seed(1), device=cpu)
+drive = urban.simulate_urban_epochs(
+    torch.Generator().manual_seed(2), torch.zeros((3, 3), dtype=torch.float64),
+    1000.0 + torch.arange(3, dtype=torch.float64),
+    gpipe.synthetic_constellation(24, toe=1000.0, device=cpu), city,
+    torch.tensor([0.39, 1.99, 50.0], dtype=torch.float64))
+assert drive["budget"].usable.any()
 assert not any(k == "jax" or k.startswith(("jax.", "toyslam_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("ok")

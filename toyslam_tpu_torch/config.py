@@ -3,8 +3,9 @@ runs).
 
 A config file is a JSON object of ``{kind: {param: value}}`` sections, as
 the JAX package reads and writes them (``configs/example.json``). The port
-reads its ``odometry``, ``loam``, ``window``, ``preintegration`` and
-``batch_fusion`` sections under those names; unspecified parameters keep
+reads its ``odometry``, ``loam``, ``window``, ``preintegration``,
+``batch_fusion``, ``raim``, ``gnss_epoch`` and ``gps_sim`` sections under
+those names; unspecified parameters keep
 their defaults, an unknown one raises, a JSON list becomes a tuple where
 the default is one, and the JAX package's TPU dispatch knobs
 (``use_pallas``, ``repack_pallas``), which have no counterpart, are
@@ -18,10 +19,13 @@ from pathlib import Path
 from typing import Any
 
 from toyslam_tpu_torch.estimators.preintegration import PreintegrationParams
+from toyslam_tpu_torch.gnss.pipeline import EpochConfig
+from toyslam_tpu_torch.gnss.raim import RaimConfig
 from toyslam_tpu_torch.estimators.window import WindowConfig
 from toyslam_tpu_torch.pipelines.batch_fusion import BatchFusionConfig
 from toyslam_tpu_torch.pipelines.loam import LoamConfig
 from toyslam_tpu_torch.pipelines.odometry import OdometryConfig
+from toyslam_tpu_torch.sim.gps import GpsSimConfig
 
 _JAX_DISPATCH = frozenset({"use_pallas", "repack_pallas"})
 SECTIONS = {
@@ -30,6 +34,9 @@ SECTIONS = {
     "window": WindowConfig,
     "preintegration": PreintegrationParams,
     "batch_fusion": BatchFusionConfig,
+    "raim": RaimConfig,
+    "gnss_epoch": EpochConfig,
+    "gps_sim": GpsSimConfig,
 }
 
 

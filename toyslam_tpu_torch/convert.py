@@ -21,6 +21,10 @@ from toyslam_tpu_torch.estimators.factors import NavState
 from toyslam_tpu_torch.estimators.preintegration import (PreintegrationParams,
                                                           Preintegrated)
 from toyslam_tpu_torch.estimators.window import SlidingWindow, WindowConfig
+from toyslam_tpu_torch.gnss.atmosphere import IonoParams
+from toyslam_tpu_torch.gnss.ephemeris import GpsEphemeris
+from toyslam_tpu_torch.gnss.pipeline import EphemerisStore, EpochConfig
+from toyslam_tpu_torch.gnss.raim import RaimConfig
 from toyslam_tpu_torch.pipelines.batch_fusion import BatchFusionConfig
 from toyslam_tpu_torch.pipelines.fusion import FusionConfig
 from toyslam_tpu_torch.pipelines.icp_slam import IcpSlamConfig
@@ -31,6 +35,8 @@ from toyslam_tpu_torch.pipelines.odometry import (MappingState,
 from toyslam_tpu_torch.registration.gicp import GICPConfig
 from toyslam_tpu_torch.registration.icp import ICPConfig
 from toyslam_tpu_torch.registration.ndt import NDTConfig, NDTMap
+from toyslam_tpu_torch.sim.gps import GpsSimConfig
+from toyslam_tpu_torch.sim.urban import Buildings
 
 
 def _tensor(a, device):
@@ -164,3 +170,44 @@ def sliding_window(fields, device="cuda") -> SlidingWindow:
         preints=Preintegrated(**{k: _tensor(pre[k], device)
                                  for k in Preintegrated._fields}),
         prior_state=nav_state(fields["prior_state"], device), **out)
+
+
+def epoch_config(fields: Mapping) -> EpochConfig:
+    return _shared_fields(EpochConfig, fields)
+
+
+def raim_config(fields: Mapping) -> RaimConfig:
+    return _shared_fields(RaimConfig, fields)
+
+
+def gps_sim_config(fields: Mapping) -> GpsSimConfig:
+    return _shared_fields(GpsSimConfig, fields)
+
+
+def iono_params(fields, device="cuda") -> IonoParams:
+    """The fields of the JAX ``IonoParams`` -> the port's (alpha and beta
+    on ``device``, ``valid`` a Python bool)."""
+    fields = _fields(fields)
+    return IonoParams(_tensor(fields["alpha"], device),
+                      _tensor(fields["beta"], device),
+                      bool(fields.get("valid", True)))
+
+
+def ephemeris(fields, device="cuda") -> GpsEphemeris:
+    """The fields of a JAX ``GpsEphemeris`` -> the port's, on ``device``."""
+    fields = _fields(fields)
+    return GpsEphemeris(**{k: _tensor(fields[k], device)
+                           for k in GpsEphemeris._fields})
+
+
+def ephemeris_store(fields, device="cuda") -> EphemerisStore:
+    """The fields of a JAX ``EphemerisStore`` (its ``eph`` as a
+    GpsEphemeris or its fields) -> the port's, on ``device``."""
+    return EphemerisStore(ephemeris(_fields(fields)["eph"], device))
+
+
+def buildings(fields, device="cuda") -> Buildings:
+    """The fields of the JAX ``Buildings`` -> the port's, on ``device``."""
+    fields = _fields(fields)
+    return Buildings(**{k: _tensor(fields[k], device)
+                        for k in Buildings._fields})
