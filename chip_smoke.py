@@ -44,7 +44,14 @@ just after:
   log through ``gnss/local.prep_epochs`` (f64) and
   ``solve_epochs_local`` (f32) on the card, ``gnss/pipeline.run_epochs``
   in f64 on the card, and the apps ``gnss_demo``, ``raim_demo`` and
-  ``urban_demo`` at their defaults.
+  ``urban_demo`` at their defaults;
+- ROS bags and the host runtime (phase 28; K2, K3): the odometry scans
+  written as an lz4 bag (bag-256k) by ``runtime/rosbag.write_bag``, read
+  by the C bag reader of the host library (``csrc/host``, built by gcc in
+  phase 1) into ``ndt_mapping``, ``runtime/loader.ScanStream`` over the
+  same scans as PCDs into ``mapping_step``, and the apps
+  ``mapping_demo`` on a bag, ``fusion_demo`` and ``gnss_demo`` with
+  ``--write-bag`` and then ``--bag``.
 
 It checks that every align converged and improved on its identity guess
 against the generated ground truth, that the card's exact NDT align lands
@@ -116,8 +123,21 @@ solve on every epoch and of its f64 ``run_epochs`` on the epochs whose
 masks agree (at most ``GNSS_MASK_SPLIT_MAX`` do not), that
 ``run_epochs`` in f64 on the card lands within ``GNSS_F64_POS_M`` of the
 host's, and that the three apps pass their gates (``gnss_demo``'s ATE
-below 5 m). The f64 host runs of phases 25-27 go in processes of their
-own, started at the beginning. The line before the card's line is ``{"kernels": [...]}``; the last line is
+below 5 m). For the bag (phase 28) it checks that the bag through the C
+and the Python reader and the same scans as PCDs through the C packer and
+through Python give byte-equal stacks, times and counts (and a bz2 bag
+the same through both readers), that the bag's ``ndt_mapping`` launched
+K2 and K3, converged and lies within the ground-truth bounds of phase 4,
+that ScanStream's poses and map equal the preloaded stack's and the
+bag's ``ndt_mapping``'s bit for bit, that 200 threaded ``pack_scans``
+calls all succeed and equal the Python packer, that ``StageTimer`` waits
+for the card and agrees with the host clock, that ``mapping_demo`` on a
+bag writes phase 18's pose columns and map bytes, that ``fusion_demo``'s
+bag replay passes ``tests/test_apps.py``'s gate (smoothed vs raw fixes <
+0.5 m) and that ``gnss_demo``'s replay solves to its simulation's ENU
+positions. The f64 host runs of phases 25-27 and phase 28's files
+(written by a host job) go in processes of their own, started at the
+beginning. The line before the card's line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before it. There is no CPU path: without a CUDA
 device the script exits with 1.
@@ -125,6 +145,7 @@ device the script exits with 1.
 
 from __future__ import annotations
 
+import csv
 import json
 import re
 import subprocess
@@ -276,6 +297,23 @@ GNSS_PROFILE_EPOCHS = 16
 # 2.14e-8 m, 4.51e-12 m/s).
 GNSS_F64_EPOCHS = 256
 GNSS_F64_POS_M, GNSS_F64_VEL = 1e-7, 2.5e-11
+# Phase 28, the bag and the host runtime: bag-256k, the odometry scans'
+# valid points as PointCloud2 (x, y, z, intensity f32) on /velodyne_points
+# at 10 Hz stamps from BAG_T0, lz4 chunks, written by the port's
+# rosbag.write_bag in a host job during phases 1-27; its four ingest routes
+# (the bag through the C and the Python reader, the same scans as PCDs
+# through the C packer and through Python) held byte-equal; ndt_mapping
+# over it at the scans' 262144 capacity; ScanStream over the PCDs into
+# mapping_step against the preloaded stack; the C packer's threads; the
+# three bag apps; StageTimer around a spin and a mapping step.
+BAG_TOPIC = "/velodyne_points"
+BAG_T0 = 1738856408.0  # 2025-02-06 16:30:08, the reference's bag
+BAG_CAPACITY = 64 * 4096  # mapping_demo --capacity, the scans' rays
+INGEST_REPS = 3  # best of, host clock
+RACE_CALLS, RACE_THREADS, RACE_SMALL = 200, 8, 24
+FUSION_BAG_S = 5  # fusion_demo --duration for the bag round trip
+FUSION_BAG_GATE_M = 0.5  # tests/test_apps.py:138-153's gate
+STAGE_SPIN_MS = 50.0
 NEW_PATH_KERNELS = ("ndt_terms_gathered", "ndt_gather_repack",
                     "ndt_terms_packed", "nearest_neighbor", "neg_dist_bf16",
                     "gicp_terms")
@@ -605,7 +643,8 @@ def run_app(*args):
 def mapping_path(scans, scan_mask, xyzi, mask, cfg, odo_out, a_xyzi,
                  a_mask):
     """Phases 12-18: the mapping slice on the card. Returns the kernels'
-    launch counts of the mapping run."""
+    launch counts of the mapping run, phase 17's reader, and phase 18's
+    batch files (trajectory.txt, solution.csv, map.pcd bytes)."""
     import torch
 
     from toyslam_tpu_torch.core import pcd_io, pointcloud
@@ -902,7 +941,7 @@ def mapping_path(scans, scan_mask, xyzi, mask, cfg, odo_out, a_xyzi,
     check(all(n_map[k] == outs[k][1] for k in outs),
           "map.pcd does not hold the printed point count")
     tmp.cleanup()
-    return map_launch, golden_phase
+    return map_launch, golden_phase, files["batch"]
 
 
 def distinct(d2, tol):
@@ -2066,9 +2105,57 @@ def gnss_host_reference():
             "local_num_sats": loc.num_sats.numpy()}
 
 
+def race_pcd(path, rng):
+    """A small binary PCD whose header lists x, y, z, intensity and up to
+    28 extra fields in a random order (the packer's workers parse a
+    different layout each)."""
+    extra = [f"extra_{i}" for i in range(int(rng.integers(0, 29)))]
+    names = list(rng.permutation(["x", "y", "z", "intensity"] + extra))
+    nf, n = len(names), int(rng.integers(1, 4))
+    header = (f"# .PCD v0.7\nVERSION 0.7\nFIELDS {' '.join(names)}\n"
+              f"SIZE {' '.join(['4'] * nf)}\nTYPE {' '.join(['F'] * nf)}\n"
+              f"COUNT {' '.join(['1'] * nf)}\nWIDTH {n}\nHEIGHT 1\n"
+              f"VIEWPOINT 0 0 0 1 0 0 0\nPOINTS {n}\nDATA binary\n")
+    path.write_bytes(header.encode()
+                     + rng.normal(0, 5, (n, nf)).astype(np.float32).tobytes())
+
+
+def bag_files(inputs):
+    """Phase 28's files in ``inputs["dir"]``, written on the host (a
+    process of its own while the card runs phases 1-27): bag-256k.bag and
+    its scans as pcd/cloud_K.pcd, app.bag (the first APP_SCANS scans, lz4),
+    small_bz2.bag (two cut scans, bz2), and race/ (RACE_SMALL small PCDs
+    of random header layouts)."""
+    from toyslam_tpu_torch.core import pcd_io
+    from toyslam_tpu_torch.runtime import rosbag
+
+    d = Path(str(inputs["dir"]))
+    xyzi, mask = inputs["xyzi"], inputs["mask"]
+    clouds = [xyzi[k][mask[k]] for k in range(len(xyzi))]
+    stamped = [(BAG_T0 + 0.1 * k, c) for k, c in enumerate(clouds)]
+    (d / "pcd").mkdir()
+    for k, c in enumerate(clouds):
+        pcd_io.write_pcd(d / "pcd" / f"cloud_{k}.pcd", c)
+    t0 = time.perf_counter()
+    rosbag.write_bag(d / "bag-256k.bag", stamped, topic=BAG_TOPIC,
+                     compression="lz4")
+    write_s = time.perf_counter() - t0
+    rosbag.write_bag(d / "app.bag", stamped[:APP_SCANS], topic=BAG_TOPIC,
+                     compression="lz4")
+    rosbag.write_bag(d / "small_bz2.bag", [(BAG_T0, clouds[0][:5000]),
+                                           (BAG_T0 + 0.1, clouds[1][:3000])],
+                     topic=BAG_TOPIC, compression="bz2")
+    (d / "race").mkdir()
+    rng = np.random.default_rng(4)
+    for k in range(RACE_SMALL):
+        race_pcd(d / "race" / f"small_{k}.pcd", rng)
+    return {"write_s": np.float64(write_s)}
+
+
 HOST_JOBS = {"references": lambda inputs: host_references(),
              "golden": golden_chains,
-             "gnss": lambda inputs: gnss_host_reference()}
+             "gnss": lambda inputs: gnss_host_reference(),
+             "bag": bag_files}
 JOBS = []  # started host jobs, stopped at exit
 
 
@@ -2621,6 +2708,273 @@ def gnss_phase(dev, ref_job):
             "app_s": apps}
 
 
+def run_chain(*steps):
+    """``run_module`` of each (module, *args) in turn; their results."""
+    return [run_module(*step) for step in steps]
+
+
+def bag_phase(dev, gt, cfg, bag_job, app_files):
+    """Phase 28: bag-256k's ingest routes, ndt_mapping over it, ScanStream,
+    the packer's threads, StageTimer and the bag apps on the card. Returns
+    K1-K3's launches of the bag's ndt_mapping."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from toyslam_tpu_torch.core import pcd_io
+    from toyslam_tpu_torch.ops import ndt_kernels
+    from toyslam_tpu_torch.pipelines import odometry
+    from toyslam_tpu_torch.runtime import loader, native, rosbag
+    from toyslam_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    write_s = float(bag_job.get()["write_s"])
+    d = bag_job.out_dir
+    bag, pcds = d / "bag-256k.bag", loader.list_scan_files(d / "pcd")
+    S, cap = len(gt), BAG_CAPACITY
+    card = card_line()
+    print(f"phase 28 bag-256k: {S} scans as PointCloud2 on {BAG_TOPIC} at "
+          f"10 Hz, lz4 chunks, {bag.stat().st_size / 1e6:.2f} MB, written "
+          f"by rosbag.write_bag (pure Python) in {write_s:.2f} s on the "
+          f"host (a process of its own during phases 1-27)")
+
+    # Ingest: four routes, best of INGEST_REPS on the host clock, held
+    # byte-equal.
+    routes = {
+        "bag, C reader": lambda: rosbag.pack_bag_scans(bag, BAG_TOPIC, cap),
+        "bag, Python reader": lambda: rosbag.pack_bag_scans(
+            bag, BAG_TOPIC, cap, native=False),
+        "PCDs, C packer": lambda: loader.load_scan_stack(pcds, cap),
+        "PCDs, Python": lambda: loader.load_scan_stack(pcds, cap,
+                                                       native=False),
+    }
+    got, ingest_ms = {}, {}
+    for name, fn in routes.items():
+        best = np.inf
+        for _ in range(INGEST_REPS):
+            t0 = time.perf_counter()
+            got[name] = fn()
+            best = min(best, time.perf_counter() - t0)
+        ingest_ms[name] = 1e3 * best / S
+    xb, mb, tb, cb = got["bag, C reader"]
+    for name, res in got.items():
+        same = all(a.tobytes() == b.tobytes() for a, b in zip(res, got[
+            "bag, C reader"]))
+        check(same, f"ingest route {name!r} differs from the bag's C reader")
+    stamps = BAG_T0 + 0.1 * np.arange(S)
+    valid = [len(pcd_io.read_pcd(f)) for f in pcds]
+    check(len(tb) == S and np.abs(tb - stamps).max() < 1e-6
+          and cb.tolist() == valid, "the bag's times or counts are wrong")
+    print(f"  ingest, host ms a scan (best of {INGEST_REPS}; {card}): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in ingest_ms.items())
+          + f"; all four stacks byte-equal (xyzi, mask; times and counts of "
+          f"the two bag routes): True; {min(valid)}-{max(valid)} points a "
+          f"scan in capacity {cap}")
+    small = d / "small_bz2.bag"
+    bz = [rosbag.pack_bag_scans(small, BAG_TOPIC, 8192, native=n)
+          for n in (True, False)]
+    check(all(a.tobytes() == b.tobytes() for a, b in zip(*bz))
+          and bz[0][3].tolist() == [5000, 3000],
+          "the bz2 bag reads differently through the C and Python readers")
+    print("  a bz2 bag through the C reader (libbz2 opened) and the Python "
+          "reader: byte-equal")
+
+    # ndt_mapping over the bag's stack, counts set to 0 just before it.
+    scans = torch.from_numpy(xb).to(dev)
+    masks = torch.from_numpy(mb).to(dev)
+    ndt_kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    mout = odometry.ndt_mapping(scans, masks, MAP_CAPACITY, cfg)
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - t0
+    launch = dict(ndt_kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    again = odometry.ndt_mapping(scans, masks, MAP_CAPACITY, cfg)
+    torch.cuda.synchronize()
+    again_s = time.perf_counter() - t0
+    check(launch["ndt_gather_repack"] > 0 and launch["ndt_terms_packed"] > 0,
+          "K2 or K3 was never launched in the bag's mapping")
+    check(torch.equal(again.odometry.poses, mout.odometry.poses)
+          and torch.equal(again.map_xyzi, mout.map_xyzi),
+          "a rerun of the bag's mapping differs")
+    check(bool(mout.odometry.converged.all()), "a bag mapping align did "
+                                               "not converge")
+    poses = mout.odometry.poses.double().numpy()
+    gt_rel = np.linalg.inv(gt[0]) @ gt
+    ate = np.linalg.norm(poses[:, :3, 3] - gt_rel[:, :3, 3], axis=1)
+    pair_err = [float(np.linalg.norm(
+        mout.odometry.pairwise[k].double().numpy()[:3, 3]
+        - (np.linalg.inv(gt[k - 1]) @ gt[k])[:3, 3])) for k in range(1, S)]
+    print(f"  ndt_mapping over the bag (capacity {cap}, map {MAP_CAPACITY}):"
+          f" {(S - 1) / again_s:.2f} scans/s ({1e3 * again_s / (S - 1):.2f} "
+          f"ms a scan, second run, bit-identical; first run "
+          f"{(S - 1) / map_s:.2f}; {card}); launches {launch}; ATE vs "
+          f"ground truth max "
+          f"{ate.max():.4g} m (bound {ATE_MAX_M}), per-scan relative "
+          f"translation error median {np.median(pair_err):.4g} m (bound "
+          f"{PAIR_MEDIAN_MAX_M})")
+    check(np.isfinite(poses).all() and ate.max() < ATE_MAX_M
+          and np.median(pair_err) < PAIR_MEDIAN_MAX_M,
+          "the bag's mapping is far from the ground truth")
+
+    # ScanStream over the PCDs into mapping_step, against the same loop
+    # over the preloaded stack.
+    def stepped(feed):
+        state, out_poses = None, []
+        t0 = time.perf_counter()
+        for x, m in feed:
+            if state is None:
+                state = odometry.mapping_init(x, m, MAP_CAPACITY, cfg)
+                out_poses.append(state.odometry.pose)
+            else:
+                state, o = odometry.mapping_step(state, x, m, cfg)
+                out_poses.append(o[0])
+        torch.cuda.synchronize()
+        return state, torch.stack(out_poses), time.perf_counter() - t0
+
+    sx, sm = (torch.from_numpy(a).to(dev) for a in got["PCDs, C packer"])
+    torch.cuda.synchronize()
+    st_state, st_poses, st_s = stepped(zip(sx, sm))
+    stream = loader.ScanStream(pcds, cap, device=dev)
+    ss_state, ss_poses, ss_s = stepped(stream)
+    same = (torch.equal(ss_poses, st_poses)
+            and torch.equal(ss_state.map_cloud.xyzi, st_state.map_cloud.xyzi)
+            and torch.equal(ss_state.map_cloud.mask, st_state.map_cloud.mask))
+    like_batch = (torch.equal(st_poses, mout.odometry.poses)
+                  and torch.equal(st_state.map_cloud.xyzi, mout.map_xyzi))
+    print(f"  ScanStream (prefetch 2, pinned ring, side-stream copies) into "
+          f"mapping_step: {S / ss_s:.2f} scans/s, {1e3 * stream.wait_s:.1f} "
+          f"ms of host waiting on the queue in {ss_s:.2f} s; the same loop "
+          f"over the preloaded stack {S / st_s:.2f} scans/s ({card}); "
+          f"poses and map bit-identical: {same}; both equal the bag's "
+          f"ndt_mapping bit for bit: {like_batch}")
+    check(same, "ScanStream's mapping differs from the preloaded stack's")
+    check(like_batch, "the chained steps differ from the bag's ndt_mapping")
+
+    # The packer's threads: RACE_CALLS calls over the 16 PCDs and the small
+    # ones of random header layouts, each equal to the Python packer.
+    files = pcds + sorted((d / "race").glob("*.pcd"))
+    want = loader.load_scan_stack(files, cap, native=False)
+    out = (np.empty_like(want[0]), np.empty_like(want[1]))
+    t0 = time.perf_counter()
+    failed = differ = 0
+    for _ in range(RACE_CALLS):
+        try:
+            native.pack_scans(files, cap, RACE_THREADS, out=out)
+        except ValueError:
+            failed += 1
+            continue
+        differ += not (np.array_equal(out[0].view(np.uint32),
+                                      want[0].view(np.uint32))
+                       and np.array_equal(out[1], want[1]))
+    race_s = time.perf_counter() - t0
+    print(f"  pack_scans x {RACE_CALLS}, {RACE_THREADS} threads, "
+          f"{len(files)} files ({len(pcds)} of bag-256k's scans, {RACE_SMALL}"
+          f" small of random header layouts): {failed} failed, {differ} "
+          f"differ from the Python packer ({race_s:.1f} s)")
+    check(failed == 0 and differ == 0, "the C packer failed or differed "
+                                       "under threads")
+
+    # StageTimer: it waits for the card (a spin queued inside the stage),
+    # and around one mapping step it agrees with the host clock.
+    timer = profiling.StageTimer()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    end.synchronize()
+    cycles = int(10_000_000 * STAGE_SPIN_MS / start.elapsed_time(end))
+    holder = []
+    with timer.stage("spin", holder):
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        holder.append(torch.ones(1, device=dev) + 1)
+    spin_dev = start.elapsed_time(end)
+    prev = odometry.mapping_init(sx[S - 2], sm[S - 2], MAP_CAPACITY, cfg)
+    holder = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timer.stage("mapping_step", holder):
+        holder.append(odometry.mapping_step(prev, sx[S - 1], sm[S - 1], cfg))
+    torch.cuda.synchronize()
+    host_step = 1e3 * (time.perf_counter() - t0)
+    summ = timer.summary()
+    spin_ms, step_ms = summ["spin"]["total_ms"], summ["mapping_step"][
+        "total_ms"]
+    print(f"  StageTimer: a stage around a spin of {spin_dev:.2f} ms on "
+          f"the card (CUDA events) {spin_ms:.2f} ms; one mapping step "
+          f"{step_ms:.3f} ms, the host clock around it and a synchronise "
+          f"{host_step:.3f} ms ({card})")
+    check(spin_ms >= spin_dev, "StageTimer did not wait for the card")
+    check(0.0 <= host_step - step_ms < 1.0, "StageTimer and the host clock "
+                                            "disagree")
+
+    # The apps on the card, three chains at once: mapping_demo on a bag of
+    # phase 18's six scans; fusion_demo and gnss_demo --write-bag, --bag.
+    root = d / "apps"
+    fbag, gbag = root / "sensors.bag", root / "meas.bag"
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as ex:
+        fm = ex.submit(run_module, "toyslam_tpu_torch.apps.mapping_demo",
+                       d / "app.bag", root / "map", "--capacity", cap)
+        ff = ex.submit(run_chain, (
+            "toyslam_tpu_torch.apps.fusion_demo", root / "fsim",
+            "--duration", FUSION_BAG_S, "--write-bag", fbag), (
+            "toyslam_tpu_torch.apps.fusion_demo", root / "frep", "--bag",
+            fbag))
+        fg = ex.submit(run_chain, (
+            "toyslam_tpu_torch.apps.gnss_demo", root / "gsim",
+            "--write-bag", gbag), (
+            "toyslam_tpu_torch.apps.gnss_demo", root / "grep", "--bag",
+            gbag))
+        (m_rc, m_out, m_s), fus, gns = fm.result(), ff.result(), fg.result()
+    apps_s = time.perf_counter() - t0
+    check(m_rc == 0, f"mapping_demo on a bag exited {m_rc}")
+    tum = [(root / "map" / "trajectory.txt").read_text().splitlines(),
+           app_files[0].decode().splitlines()]
+    poses_same = [ln.split()[1:] for ln in tum[0]] == [
+        ln.split()[1:] for ln in tum[1]]
+    map_same = (root / "map" / "map.pcd").read_bytes() == app_files[2]
+    bag_t = [float(ln.split()[0]) for ln in tum[0]]
+    print(f"  mapping_demo on app.bag ({APP_SCANS} scans, {m_s:.1f} s with "
+          f"the process start): trajectory.txt's pose columns equal to phase"
+          f" 18's directory run: {poses_same}, map.pcd byte-equal: "
+          f"{map_same}; times {bag_t[0]:.1f}..{bag_t[-1]:.1f} from the "
+          f"stamps")
+    check(poses_same and map_same, "mapping_demo on a bag differs from "
+                                   "the directory run")
+    check(all(rc == 0 for rc, _, _ in fus), "fusion_demo exited non-zero")
+    rep = fus[1][1]
+    rmse = float(re.search(r"smoothed vs raw-fix RMSE:\s+([\d.]+) m",
+                           rep).group(1))
+    print(f"  fusion_demo --duration {FUSION_BAG_S} --write-bag, then --bag "
+          f"({fus[0][2]:.1f} s, {fus[1][2]:.1f} s): replay "
+          + " | ".join(ln for ln in rep.splitlines()
+                       if "keyframes" in ln or "RMSE" in ln)
+          + f" (gate < {FUSION_BAG_GATE_M} m)")
+    check("GPS keyframes" in rep and rmse < FUSION_BAG_GATE_M,
+          f"fusion_demo's bag replay: smoothed vs raw fixes {rmse} m")
+    check(all(rc == 0 for rc, _, _ in gns), "gnss_demo exited non-zero")
+
+    def enu(name):
+        with open(root / name / "gnss_position.csv") as f:
+            rows = list(csv.DictReader(f))
+        return [(r["enu_e"], r["enu_n"], r["enu_u"]) for r in rows]
+
+    gsame = enu("gsim") == enu("grep")
+    n_ep = re.search(r"bag: (\d+) GnssMeas epochs", gns[1][1])
+    print(f"  gnss_demo --write-bag, then --bag ({gns[0][2]:.1f} s, "
+          f"{gns[1][2]:.1f} s): {n_ep.group(1) if n_ep else '?'} GnssMeas "
+          f"epochs; the replay's ENU positions equal the simulation's: "
+          f"{gsame}")
+    check(gsame and n_ep is not None, "gnss_demo's bag replay solves to "
+                                      "other positions")
+    print(f"  the three app chains at once: {apps_s:.1f} s; phase 28: "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    return launch
+
+
 def main() -> int:
     import torch
 
@@ -2637,6 +2991,7 @@ def main() -> int:
     from toyslam_tpu_torch.ops import ndt_kernels, nn_kernels, ranking_kernels
     from toyslam_tpu_torch.pipelines import odometry
     from toyslam_tpu_torch.registration import gicp, icp, ndt
+    from toyslam_tpu_torch.runtime import native
     from toyslam_tpu_torch.sim.urban_scans import spinning_lidar_scans
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2659,12 +3014,26 @@ def main() -> int:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
+    # The host library (csrc/host: LZF, LZ4, the PCD packer, the bag
+    # reader), built by gcc from the checkout's sources; a failure raises.
+    t0 = time.perf_counter()
+    host_lib = native.build()
+    native.load()
+    print(f"phase 1 host library: {time.perf_counter() - t0:.2f} s "
+          f"({host_lib.name}); bz2 chunks readable (libbz2 opened): "
+          f"{native.bz2_available()}")
+    check(native.bz2_available(), "libbz2 could not be opened: the C bag "
+                                  "reader cannot decode bz2 chunks")
 
     # Scans: 16 x 262144 rays for odometry, 2 x 65536 for the single aligns.
     t0 = time.perf_counter()
     xyzi, mask, gt = spinning_lidar_scans(0, ODO_SCANS)
     a_xyzi, a_mask, a_gt = spinning_lidar_scans(1, 2, *ALIGN_RAYS,
                                                 fov_deg=ALIGN_FOV)
+    bag_dir = tempfile.TemporaryDirectory()
+    bag_job = HostJob("bag", {"dir": np.array(bag_dir.name), "xyzi": xyzi,
+                              "mask": mask})  # phase 28's files
+    bag_job.out_dir, bag_job.keep = Path(bag_dir.name), bag_dir
     print(f"scans generated on the host: {time.perf_counter() - t0:.1f} s, "
           f"{xyzi.shape[1]} and {a_xyzi.shape[1]} rays per scan")
     scans = torch.from_numpy(xyzi).to(dev)
@@ -3376,9 +3745,8 @@ def main() -> int:
           f"{bounds['lane_row_sum'][0]:.4f} ms")
     del got, want, gtab, gids
 
-    map_launch, golden_phase = mapping_path(scans, scan_mask, xyzi, mask,
-                                            cfg, out,
-                              a_xyzi, a_mask)
+    map_launch, golden_phase, app_files = mapping_path(
+        scans, scan_mask, xyzi, mask, cfg, out, a_xyzi, a_mask)
     app_launch, search_args = align_app_phase(dev, a_xyzi, a_mask, a_gt)
     search_phase(dev, *search_args)
     slam_launch = icp_slam_phase(dev)
@@ -3394,6 +3762,7 @@ def main() -> int:
     loam_phase(dev, refs)
     smoother_phase(dev, refs)
     gnss_phase(dev, gnss_ref)
+    bag_launch = bag_phase(dev, gt, cfg, bag_job, app_files)
 
     print(card)
     kernels = [{
@@ -3411,6 +3780,8 @@ def main() -> int:
     for name in ndt_names:  # the mapping path's own run
         kernels[list(KERNELS).index(name)]["mapping_launches"] = (
             map_launch[name])
+        kernels[list(KERNELS).index(name)]["bag_mapping_launches"] = (
+            bag_launch[name])  # phase 28
     for key, counts in new_paths.items():  # phases 19, 21 and 22
         for name in NEW_PATH_KERNELS:
             kernels[list(KERNELS).index(name)][key] = counts.get(name, 0)

@@ -647,10 +647,15 @@ def test_gnss_demo_cpu_matches_jax_app(tmp_path):
         assert ra["sats"] == rb["sats"] and ra["tow"] == rb["tow"]
         assert abs(ra["pdop"] - rb["pdop"]) < 1e-12
         assert abs(ra["hdop"] - rb["hdop"]) < 1e-12
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 8"):
-        gnss_demo.main([str(port), "--bag", "x.bag", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 8"):
-        gnss_demo.main([str(port), "--write-bag", "x.bag", "--device", "cpu"])
+    # Bag replay is tests/test_torch_rosbag.py's; here only that a missing
+    # bag raises and --write-bag writes the 12 epochs.
+    with pytest.raises(FileNotFoundError):
+        gnss_demo.main([str(port), "--bag", str(tmp_path / "x.bag"),
+                        "--device", "cpu"])
+    assert gnss_demo.main([str(port), "--epochs", "12", "--device", "cpu",
+                           "--write-bag", str(tmp_path / "w.bag")]) == 0
+    from toyslam_tpu_torch.runtime import rosbag
+    assert len(rosbag.pack_bag_gnss_meas(tmp_path / "w.bag")) == 12
     if not torch.cuda.is_available():  # no fallback to the host
         with pytest.raises(RuntimeError):
             gnss_demo.main([str(port)])

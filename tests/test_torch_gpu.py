@@ -51,6 +51,10 @@ solve (the smoke run reads 2.6e-4 m at gnss-1024); RAIM and the urban
 simulator in f64 on the card match the host within 1e-6 m with the same
 decisions and classes; ``convert``'s GNSS helpers and ``store_init`` put
 their tensors on the card by default.
+``runtime/loader.ScanStream`` on the card (pinned ring, side-stream
+copies, an event and ``record_stream``) yields every scan bit-identical
+to the packed stack, with a consumer stream of its own that spins before
+each read.
 """
 
 from unittest import mock
@@ -1038,3 +1042,39 @@ def test_convert_gnss_defaults_to_card(cuda):
     store = convert.ephemeris_store({"eph": eph._asdict()})
     assert store.eph.toe_sec.is_cuda
     assert gpipe.store_init().eph.sat.is_cuda
+
+
+@pytest.mark.parametrize("prefetch", [1, 3])
+def test_scan_stream_on_card_equals_stack(cuda, tmp_path, prefetch):
+    """``runtime/loader.ScanStream`` on the card (pinned ring, copies on a
+    side stream, an event the consumer waits on, ``record_stream``): every
+    scan equal to the packed stack's row bit for bit, with the consumer on
+    a stream of its own and spinning before each read, so that the
+    producer runs ahead and reuses its pinned buffers, and each scan's
+    tensors dropped before the next arrives."""
+    from toyslam_tpu_torch.core import pcd_io
+    from toyslam_tpu_torch.runtime import loader
+
+    xyzi, mask, _ = spinning_lidar_scans(0, 12, 16, 1024)
+    paths = []
+    for k in range(len(xyzi)):
+        paths.append(tmp_path / f"cloud_{k}.pcd")
+        pcd_io.write_pcd(paths[-1], xyzi[k][mask[k]])
+    cap = xyzi.shape[1]
+    stack_x, stack_m = loader.load_scan_stack(paths, cap)
+    consumer = torch.cuda.Stream(cuda)
+    sums = []
+    with torch.cuda.stream(consumer):
+        stream = loader.ScanStream(paths, cap, device=cuda, prefetch=prefetch)
+        for k, (x, m) in enumerate(stream):
+            assert x.is_cuda and m.is_cuda and m.dtype == torch.bool
+            torch.cuda._sleep(2_000_000)  # ~1 ms of the card before reading
+            want_x = torch.from_numpy(stack_x[k]).to(cuda, non_blocking=False)
+            want_m = torch.from_numpy(stack_m[k]).to(cuda)
+            sums.append(((x.view(torch.int32) != want_x.view(torch.int32))
+                         .sum() + (m != want_m).sum()))
+            del x, m
+    consumer.synchronize()
+    assert len(sums) == len(paths)
+    assert int(torch.stack(sums).sum()) == 0
+    assert stream.wait_s >= 0.0

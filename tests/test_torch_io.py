@@ -232,8 +232,10 @@ def test_mapping_app_needs_a_card_unless_told_cpu(scan_dir, tmp_path):
 
 
 def test_mapping_app_refuses_a_bag(tmp_path):
+    """A file that is not a ROS bag is refused by the C reader (bags
+    themselves: tests/test_torch_rosbag.py)."""
     bag = tmp_path / "drive.bag"
     bag.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    with pytest.raises(ValueError, match="malformed ROS bag"):
         mapping_demo.main([str(bag), str(tmp_path / "out"), "--device",
                            "cpu"])

@@ -165,7 +165,9 @@ def test_port_imports_without_jax():
     (``fleet_fusion``), ``parallel/batch.vmap_align``, ``loam_odometry``,
     ``batch_fusion`` (with a marginalisation), GNSS's ``prep_epochs`` and
     ``solve_epochs_local``, one ``fault_exclusion`` and one
-    ``simulate_urban_epochs`` run, with JAX made unimportable."""
+    ``simulate_urban_epochs`` run, and the host library built and loaded
+    with an lz4 bag written and read back (C and Python readers) and its
+    scans packed from PCDs, with JAX made unimportable."""
     code = """
 import sys
 sys.modules["jax"] = None
@@ -264,6 +266,24 @@ drive = urban.simulate_urban_epochs(
     gpipe.synthetic_constellation(24, toe=1000.0, device=cpu), city,
     torch.tensor([0.39, 1.99, 50.0], dtype=torch.float64))
 assert drive["budget"].usable.any()
+from toyslam_tpu_torch.runtime import loader, native, rosbag
+lib = native.build()
+assert lib.parent.name == "_build" and native.bz2_available()
+with tempfile.TemporaryDirectory() as d:
+    clouds = [(1.5 + 0.1 * k, np.c_[pts + [0.2 * k, 0.0, 0.0],
+                                    np.full(len(pts), k)].astype(np.float32))
+              for k in range(3)]
+    rosbag.write_bag(f"{d}/s.bag", clouds, compression="lz4")
+    got = rosbag.pack_bag_scans(f"{d}/s.bag", capacity=2048)
+    plain = rosbag.pack_bag_scans(f"{d}/s.bag", capacity=2048, native=False)
+    assert all(a.tobytes() == b.tobytes() for a, b in zip(got, plain))
+    assert np.array_equal(got[0][2, :len(pts)], clouds[2][1])
+    assert np.allclose([m[1] for m in rosbag.read_messages(f"{d}/s.bag")],
+                       [1.5, 1.6, 1.7], rtol=0, atol=1e-9)
+    for k, (_, c) in enumerate(clouds):
+        pcd_io.write_pcd(f"{d}/cloud_{k}.pcd", c)
+    stack = loader.load_scan_stack(loader.list_scan_files(d), 2048)
+    assert stack[0].tobytes() == got[0].tobytes()
 assert not any(k == "jax" or k.startswith(("jax.", "toyslam_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print("ok")

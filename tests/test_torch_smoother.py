@@ -398,8 +398,9 @@ def test_fusion_demo_cpu(tmp_path):
                              "--device", "cpu"]) == 0
     for name in ("trajectory.txt", "solution.csv", "metrics.jsonl"):
         assert (tmp_path / name).stat().st_size > 0
-    with pytest.raises(NotImplementedError):
-        fusion_demo.main([str(tmp_path), "--bag", "x.bag", "--device", "cpu"])
+    with pytest.raises(FileNotFoundError):  # replay: test_torch_rosbag.py
+        fusion_demo.main([str(tmp_path), "--bag", str(tmp_path / "x.bag"),
+                          "--device", "cpu"])
 
 
 def test_smoother_configs_and_convert():

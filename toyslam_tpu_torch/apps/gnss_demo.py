@@ -3,7 +3,7 @@
 
     python -m toyslam_tpu_torch.apps.gnss_demo out_dir [--epochs 60] \\
         [--noise 1.5] [--n-sats 24] [--seed 0] [--speed 1.5] \\
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--write-bag file.bag] [--bag file.bag]
 
 Simulates the Kepler constellation over a receiver moving from the Hong
 Kong reference point, in float64 on the run's device, and feeds the
@@ -25,8 +25,18 @@ card. ``--device cpu`` runs the float64 ECEF pipeline
 (``gnss/pipeline.run_epochs``) on the host, as the JAX app's
 ``--device cpu`` does. The draws come from numpy's ``default_rng(seed)``
 in the JAX app's order, so ``--device cpu`` writes the JAX app's numbers
-up to float64 rounding. ROS bag replay (``--bag``, ``--write-bag``)
-waits for the port of ``runtime/rosbag``.
+up to float64 rounding.
+
+``--write-bag`` also writes the simulated epochs as
+``gnss_comm/GnssMeasMsg`` records on /ublox_driver/range_meas (lz4
+chunks), the reference's ``rawMeasCallback`` input (``gnssSpp.cpp:827``):
+one L1 observation a satellite above the horizon, Doppler in Hz as the
+receiver reports it, -rr / lambda. ``--bag`` replays such a bag in place
+of the simulated measurements (the constellation still comes from
+``--n-sats``; range rate = -Doppler * lambda, ``gnssSpp.cpp:1207``) and,
+knowing no truth, prints the spread of the ENU track instead of the ATE.
+The pseudoranges go through the bag as float64, so a replay solves to the
+simulation's positions.
 """
 
 from __future__ import annotations
@@ -44,6 +54,62 @@ import torch
 REF_LAT_DEG, REF_LON_DEG, REF_ALT_M = 22.3, 114.17, 50.0
 CLOCK_BIAS_M = 42.0
 GPS_WEEK = 2300
+L1_HZ = 1575.42e6
+MEAS_TOPIC = "/ublox_driver/range_meas"
+
+
+def write_meas_bag(path, channels):
+    """The epochs of ``channels`` (tows [E], prn, pr, rr, cn0, valid [E,
+    S]) as GnssMeasMsg records, lz4 chunks; the JAX app's bag for the
+    same numbers."""
+    from toyslam_tpu_torch.core.geodesy import SPEED_OF_LIGHT
+    from toyslam_tpu_torch.runtime import rosbag
+
+    tows, prn, pr, rr, cn0, valid = (x.cpu().numpy() for x in channels)
+    wavelength = SPEED_OF_LIGHT / L1_HZ
+    records = []
+    for e in range(len(tows)):
+        use = valid[e]
+        records.append((
+            MEAS_TOPIC, "gnss_comm/GnssMeasMsg", float(tows[e]),
+            rosbag.encode_gnss_meas(
+                GPS_WEEK, float(tows[e]), prn[e][use].astype(np.int32),
+                pr[e][use], cn0[e][use], -rr[e][use] / wavelength,
+                stamp_sec=float(tows[e]))))
+    rosbag.write_mixed_bag(path, records, compression="lz4")
+
+
+def read_meas_bag(path, n_sats, dev):
+    """A GnssMeasMsg bag -> the ``run_epochs`` channels on ``dev`` (PRNs
+    1..n_sats; a satellite outside them is dropped) and the median count
+    of satellites an epoch."""
+    from toyslam_tpu_torch.core.geodesy import SPEED_OF_LIGHT
+    from toyslam_tpu_torch.runtime import rosbag
+
+    epochs = rosbag.pack_bag_gnss_meas(path, topic=MEAS_TOPIC)
+    if not epochs:
+        raise SystemExit("bag contains no GnssMeasMsg epochs")
+    E, S = len(epochs), n_sats
+    wavelength = SPEED_OF_LIGHT / L1_HZ
+    pr, rr, cn0 = (np.zeros((E, S)) for _ in range(3))
+    valid = np.zeros((E, S), bool)
+    for e, ep in enumerate(epochs):
+        for i, prn_i in enumerate(ep["sats"]):
+            s = int(prn_i) - 1
+            if not 0 <= s < S:
+                continue  # a PRN outside the loaded constellation
+            pr[e, s] = ep["psr"][i]
+            rr[e, s] = -ep["dopp"][i] * wavelength
+            cn0[e, s] = ep["cn0"][i]
+            valid[e, s] = np.isfinite(ep["psr"][i])
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    tows = t(np.asarray([ep["tow"] for ep in epochs], np.float64))
+    prn = torch.arange(1, S + 1, dtype=torch.int32, device=dev).expand(E, S)
+    channels = (tows, prn, t(pr), t(rr), t(cn0), t(valid))
+    return channels, int(np.median([len(ep["sats"]) for ep in epochs]))
 
 
 def simulate(n_epochs, n_sats, noise, seed, speed, dev):
@@ -122,14 +188,14 @@ def main(argv=None):
                     help="cuda: float64 prep and the float32 local-frame "
                          "solve on the card; cpu: the float64 ECEF "
                          "pipeline on the host")
-    ap.add_argument("--bag", default=None)
-    ap.add_argument("--write-bag", default=None)
+    ap.add_argument("--bag", default=None,
+                    help="replay gnss_comm/GnssMeasMsg epochs from a ROS1 "
+                         "bag instead of simulating measurements (the "
+                         "constellation still comes from --n-sats)")
+    ap.add_argument("--write-bag", default=None,
+                    help="also write the simulated epochs as GnssMeasMsg "
+                         "records (lz4 chunks)")
     args = ap.parse_args(argv)
-    if args.bag or args.write_bag:
-        raise NotImplementedError(
-            "--bag and --write-bag need runtime/rosbag, which the port does "
-            "not have yet (ROADMAP.md item 8, 'The rest'); run the "
-            "simulation mode")
 
     from toyslam_tpu_torch.apps.common import card_line, device, synchronize
     from toyslam_tpu_torch.core.geodesy import ecef_to_lla
@@ -142,6 +208,13 @@ def main(argv=None):
     E, S = args.epochs, args.n_sats
     store, iono, channels, ref, R, gt = simulate(
         E, S, args.noise, args.seed, args.speed, dev)
+    if args.write_bag:
+        write_meas_bag(args.write_bag, channels)
+        print(f"wrote GNSS measurement bag: {args.write_bag}")
+    if args.bag:
+        channels, med = read_meas_bag(args.bag, S, dev)
+        E, gt = channels[0].shape[0], None
+        print(f"bag: {E} GnssMeas epochs, median sats/epoch {med}")
     cfg = pipeline.EpochConfig(apply_iono_correction=False)
 
     synchronize(dev)
@@ -180,7 +253,6 @@ def main(argv=None):
     pdop, hdop, vdop, tdop = (host(d) for d in dops)
     rec_prn, rec_el, rec_az, rec_cn0, rec_used = (host(x) for x in rec)
     vel_enu, vel_valid = host(vel_enu), host(vel_valid)
-    gt_enu = host((gt - ref) @ R.T)
 
     # gnss_position.csv: the reference's columns (:1086-1108)
     with open(out / "gnss_position.csv", "w") as f:
@@ -216,10 +288,15 @@ def main(argv=None):
     evalio.write_evapos_csv(out / "solution.csv",
                             evalio.from_transforms(tows, T, vel=vel_enu))
 
-    err = np.linalg.norm(enu - gt_enu, axis=1)
     print(f"epochs: {E}, used sats (median): {int(np.median(num_sats))}")
-    print(f"ENU ATE vs ground truth: {float(np.sqrt(np.mean(err**2))):.3f} m "
-          f"(pseudorange noise {args.noise} m)")
+    if gt is not None:
+        err = np.linalg.norm(enu - host((gt - ref) @ R.T), axis=1)
+        print(f"ENU ATE vs ground truth: {float(np.sqrt(np.mean(err**2))):.3f}"
+              f" m (pseudorange noise {args.noise} m)")
+    else:
+        spread = np.linalg.norm(enu - enu.mean(0), axis=1)
+        print(f"bag replay: ENU spread RMS "
+              f"{float(np.sqrt(np.mean(spread**2))):.3f} m")
     print(f"velocity valid: {int(vel_valid.sum())}/{E}")
     print(f"wrote {out}/gnss_position.csv, skyplot.jsonl, solution.csv")
     return 0

@@ -1,12 +1,15 @@
 """End-to-end NDT mapping: scans in, trajectory, map and metrics out (port
 of ``apps/mapping_demo.py``).
 
-    python -m toyslam_tpu_torch.apps.mapping_demo <pcd_directory> <out_dir> \\
-        [--leaf 0.3] [--map-leaf 0.5] [--capacity 131072] \\
+    python -m toyslam_tpu_torch.apps.mapping_demo <scans.bag | pcd_directory> \\
+        <out_dir> [--leaf 0.3] [--map-leaf 0.5] [--capacity 131072] \\
         [--map-capacity 65536] [--config cfg.json] [--device cuda|cpu] \\
         [--stream [--checkpoint-every N] [--resume]]
 
-Reads a directory of ``cloud_N.pcd`` scans, runs NDT odometry with the
+Reads the PointCloud2 messages on ``/velodyne_points`` of a ROS1 bag
+(none/bz2/lz4 chunks; times from the message stamps) or a directory of
+``cloud_N.pcd`` scans (times 0, 1, ...), both parsed by the host
+library's C readers (``runtime/native``), runs NDT odometry with the
 bounded global map (``pipelines/odometry.ndt_mapping``, or with
 ``--stream`` one ``mapping_step`` a scan with a snapshot every N scans to
 ``out_dir/mapping_state.npz`` that ``--resume`` continues from), and
@@ -18,7 +21,7 @@ writes:
     out_dir/metrics.jsonl      per-scan convergence, iterations, score
 
 It runs on the card; ``--device cpu`` runs the plain versions on the host.
-Without a card the default raises. ROS bags are not read yet.
+Without a card the default raises.
 """
 
 from __future__ import annotations
@@ -33,19 +36,22 @@ import torch
 
 
 def load_scans(source: str, capacity: int):
-    """-> (times [S], xyzi [S, capacity, 4] f32, mask [S, capacity])."""
-    from toyslam_tpu_torch.runtime import loader
+    """A bag or a PCD directory -> (times [S], xyzi [S, capacity, 4] f32,
+    mask [S, capacity])."""
+    from toyslam_tpu_torch.runtime import loader, rosbag
 
     src = Path(source)
-    if not src.is_dir():
-        raise NotImplementedError(
-            f"{src}: only a directory of .pcd scans is read; ROS bag input "
-            "(runtime/rosbag) waits for ROADMAP item 9")
-    files = loader.list_scan_files(src)
-    if not files:
-        raise FileNotFoundError(f"no .pcd files in {src}")
-    xyzi, mask = loader.load_scan_stack(files, capacity)
-    return np.arange(len(files), dtype=np.float64), xyzi, mask
+    if src.is_dir():
+        files = loader.list_scan_files(src)
+        if not files:
+            raise FileNotFoundError(f"no .pcd files in {src}")
+        xyzi, mask = loader.load_scan_stack(files, capacity)
+        return np.arange(len(files), dtype=np.float64), xyzi, mask
+    xyzi, mask, times, _counts = rosbag.pack_bag_scans(src,
+                                                       capacity=capacity)
+    if len(times) == 0:
+        raise ValueError(f"no PointCloud2 messages in {src}")
+    return times, xyzi, mask
 
 
 def _stream(args, scans, masks, cfg, out_dir: Path):
@@ -82,7 +88,7 @@ def _stream(args, scans, masks, cfg, out_dir: Path):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("source", help="directory of PCD scans")
+    ap.add_argument("source", help="ROS bag or directory of PCD scans")
     ap.add_argument("out_dir")
     ap.add_argument("--leaf", type=float, default=0.3)
     ap.add_argument("--map-leaf", type=float, default=0.5)

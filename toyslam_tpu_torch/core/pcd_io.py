@@ -2,8 +2,10 @@
 ``toyslam_tpu/core/pcd_io.py``, whose package imports JAX).
 
 Reads the ascii, binary and binary_compressed (LZF) DATA encodings and
-writes ascii or binary xyz[i] float32. The LZF decoder here is the
-reference's Python one; its native ctypes decoder is not ported.
+writes ascii or binary xyz[i] float32. binary_compressed payloads are
+decoded by the host library's C LZF decoder (``runtime/native``, built at
+first use) or, with ``native=False``, by the Python decoder here; both
+give the same bytes.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ def _parse_header(data: bytes):
 
 
 def _lzf_decompress(src: bytes, expected: int) -> bytes:
-    """LZF decompression of a PCL binary_compressed payload."""
+    """LZF decompression of a PCL binary_compressed payload, in Python."""
     out = bytearray()
     i, n = 0, len(src)
     while i < n and len(out) < expected:
@@ -59,10 +61,13 @@ def _lzf_decompress(src: bytes, expected: int) -> bytes:
     return bytes(out)
 
 
-def read_pcd(path: str | Path) -> np.ndarray:
+def read_pcd(path: str | Path, native: bool = True) -> np.ndarray:
     """Read a PCD file -> float32 array [n, 4] (x, y, z, intensity).
 
     Missing intensity is filled with zeros; non-xyzi fields are dropped.
+    ``native`` picks the C LZF decoder for binary_compressed files (a
+    failed build of the host library raises); ``native=False`` the Python
+    one.
     """
     raw = Path(path).read_bytes()
     header, offset = _parse_header(raw)
@@ -98,8 +103,13 @@ def read_pcd(path: str | Path) -> np.ndarray:
                                                offset=offset)
         if int(comp_size) > len(raw) - offset - 8:
             raise ValueError("binary_compressed payload exceeds file size")
-        payload = _lzf_decompress(raw[offset + 8: offset + 8 + comp_size],
-                                 uncomp_size)
+        src = raw[offset + 8: offset + 8 + comp_size]
+        if native:
+            from toyslam_tpu_torch.runtime import native as host
+
+            payload = host.lzf_decompress(src, int(uncomp_size))
+        else:
+            payload = _lzf_decompress(src, uncomp_size)
         if len(payload) < int(uncomp_size):
             raise ValueError("corrupt LZF stream in binary_compressed PCD")
         # binary_compressed is stored field-major (SoA)
