@@ -51,7 +51,13 @@ just after:
   phase 1) into ``ndt_mapping``, ``runtime/loader.ScanStream`` over the
   same scans as PCDs into ``mapping_step``, and the apps
   ``mapping_demo`` on a bag, ``fusion_demo`` and ``gnss_demo`` with
-  ``--write-bag`` and then ``--bag``.
+  ``--write-bag`` and then ``--bag``;
+- the rest of ``parallel/batch`` (phase 29; K1-K3 on point shards):
+  ``sharded_batch_fusion`` over smoother-fleet-64 (64 of the benchmark's
+  smoother logs of 32 keyframes) in f64 and f32 at chunks 64 and 16,
+  ``sharded_align`` of the align-65k pair over ``[cuda:0] x 1, 2, 4`` in
+  exact and frozen mode, and the same align split between two processes
+  joined by ``initialize_multihost`` over Gloo.
 
 It checks that every align converged and improved on its identity guess
 against the generated ground truth, that the card's exact NDT align lands
@@ -100,7 +106,8 @@ over lanes makes none, that chunks change no lane and a rerun is
 bit-identical. For LOAM (phase 25: ``pipelines/loam.loam_odometry`` over
 64 scans of HDL-32E's 32 x 1800 rays and over the benchmark's 64 of 16 x
 360, then ``apps/loam_demo`` at its defaults) it checks finite poses, a
-keyframe, no host sync and a bit-identical rerun, and holds each run to
+keyframe, no host sync and a bit-identical rerun of the first
+``LOAM_RERUN_SCANS`` scans, and holds each run to
 the port's f64 run of the same scans on the host: over the scans that
 f64 run tracks within 0.3 m (the drive loses track after ~25 scans in
 both packages) the ATE below 0.3 m, before the two runs' keyframe
@@ -110,8 +117,8 @@ benchmark's scans that
 differs from the f64 run's must lie within the f32 error of a tie, a gate
 or a sector or ring border. For the smoother (phase 26: ``pipelines/
 batch_fusion`` over the benchmark's 256-keyframe log, window 20, then
-``apps/fusion_demo`` at its defaults) it checks finite outputs, a resume
-from a checkpoint at keyframe 128 bit-identical to the run, host syncs
+``apps/fusion_demo`` over 10 s) it checks finite outputs, a resume
+from a checkpoint at keyframe 224 bit-identical to the run, host syncs
 only from ``eigh`` (one a marginalisation), the f32 drift from the host's
 f64 run within twice the JAX package's own on that log, the JAX window
 test's inputs within that test's f32-vs-f64 bounds, and the app's gate.
@@ -135,10 +142,22 @@ for the card and agrees with the host clock, that ``mapping_demo`` on a
 bag writes phase 18's pose columns and map bytes, that ``fusion_demo``'s
 bag replay passes ``tests/test_apps.py``'s gate (smoothed vs raw fixes <
 0.5 m) and that ``gnss_demo``'s replay solves to its simulation's ENU
-positions. The f64 host runs of phases 25-27 and phase 28's files
-(written by a host job) go in processes of their own, started at the
-beginning. The line before the card's line is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+positions. For ``parallel/batch`` (phase 29) it checks that the 64
+smoother lanes are finite, make one host sync a marginalisation round (a
+chunk's ``eigh``) and nothing else, that lanes 0-3 in f64 lie within
+``FLEET_LANE_F64_M`` of their single-log runs on the card and the f32
+lanes within twice the JAX package's f32 drift of the f64 lanes; that
+each sharded align converged with the unsharded align's iterations and
+a transform within 1e-5 of it, launched K1 (exact) or K2 and K3 (frozen)
+once a shard an evaluation or gather with one host copy a shard an
+evaluation, and that each shard's kernel call agrees with its plain
+version along the plain route; and that the two processes' align equals
+the one-process align over two entries. The f64 host runs of phases
+25-27 and phase 28's files (written by a host job) go in processes of
+their own, started at the beginning. The card's line comes before the
+``{"kernels": [...]}`` line, and the last line is ``{"ok": true,
+"device": {...}}``; the line before the card's gives the whole script's
+seconds.
 Any failure exits non-zero before it. There is no CPU path: without a CUDA
 device the script exits with 1.
 """
@@ -238,6 +257,10 @@ EDGE_MOVE = 1e-4
 # deg, padded to the app's 65536 points, at LoamConfig()'s defaults; and
 # loam-bench, bench.py:317-356's 64 scans of 16 x 360 rays (seed 3).
 LOAM_SCANS = 64
+# The bit-identical rerun (and its host-sync count) covers the first scans
+# only: a cut in depth that pays for phase 29 (a full rerun took 15-17 s a
+# cell; the first scans' outputs do not depend on the later scans).
+LOAM_RERUN_SCANS = 16
 LOAM_HDL = (32, 1800)
 LOAM_BENCH = (16, 360)
 LOAM_CAPACITY = 65536
@@ -261,8 +284,12 @@ LOAM_F64_TOL_M = 0.04
 LOAM_PROFILE_SCANS = 4
 # Phase 26, the smoother: smoother-w20, bench.py:284-314's log (256
 # keyframes of 20 IMU samples, seed 2) through BatchFusionConfig() (window
-# 20) in f32; a resume from a checkpoint at keyframe 128.
-SMOOTHER_RESUME_AT = 128
+# 20) in f32; a resume from a checkpoint at keyframe 224 (it re-runs the
+# keyframes after it, 128 of them at 128; this cut in depth
+# pays for phase 29 with fusion_demo's and LOAM's), and fusion_demo over
+# FUSION_DEMO_S of its log (its default 25 s took 33 s on the H100).
+SMOOTHER_RESUME_AT = 224
+FUSION_DEMO_S = 10
 SMOOTHER_PROFILE_KF = 4
 # The JAX package's own f32-against-f64 drift of batch_fusion on that log
 # (tests/jax_smoother_refs.py --drift on the CPU): its test bounds
@@ -314,6 +341,31 @@ RACE_CALLS, RACE_THREADS, RACE_SMALL = 200, 8, 24
 FUSION_BAG_S = 5  # fusion_demo --duration for the bag round trip
 FUSION_BAG_GATE_M = 0.5  # tests/test_apps.py:138-153's gate
 STAGE_SPIN_MS = 50.0
+# Phase 29, the rest of parallel/batch. smoother-fleet-64: 64 logs of
+# bench.py:284-314's generator (numpy seeds 2-65; seed 2 is bench's own
+# generator) of 32 keyframes of 20 IMU samples, BatchFusionConfig()
+# (window 20: 12 marginalisations), through sharded_batch_fusion on the
+# card in f64 (chunk 64) and f32 (chunks 64 and 16); lanes 0-3 in f64
+# against the single-log batch_fusion on the card, the f32 lanes against
+# the f64 lanes within twice the JAX package's own f32 drift (phase 26's
+# JAX_DRIFT_*). sharded-align: the align-65k pair (phase 3) over meshes
+# [cuda:0] x 1, 2, 4 in exact mode (K1) and frozen with 4 regathers (K2,
+# K3) against ndt_align, within the JAX test's 1e-5 with equal
+# iterations (tests/test_fusion.py:91-95); multihost: two processes on
+# cuda:0 joined by initialize_multihost (Gloo) split the pair.
+FLEET_LOGS, FLEET_KF = 64, 32
+FLEET_SEED0 = 2
+FLEET_CHECKED_LANES = 4
+FLEET_PROFILE_KF = 1
+# Lanes 0-3 in f64 against the single-log runs on the card, in m: about
+# twice what the card showed (4.14e-6 m, NVIDIA H100 80GB HBM3, 700 W;
+# batched and single solves round otherwise, and the window's normal
+# equations are ill-conditioned).
+FLEET_LANE_F64_M = 1e-5
+SHARD_MESHES = (1, 2, 4)
+SHARD_TOL = 1e-5
+SHARD_TIMING_REPS = 3
+GLOO_TIMEOUT_S = 120
 NEW_PATH_KERNELS = ("ndt_terms_gathered", "ndt_gather_repack",
                     "ndt_terms_packed", "nearest_neighbor", "neg_dist_bf16",
                     "gicp_terms")
@@ -2312,8 +2364,10 @@ def loam_phase(dev, refs):
         out = loam.loam_odometry(x, m, cfg)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        again, syncs = count_syncs(lambda: loam.loam_odometry(x, m, cfg))
-        same = all(torch.equal(a, b) for a, b in zip(out, again))
+        r = LOAM_RERUN_SCANS
+        again, syncs = count_syncs(lambda: loam.loam_odometry(x[:r], m[:r],
+                                                              cfg))
+        same = all(torch.equal(a[:r], b) for a, b in zip(out[:2], again[:2]))
         _, _, ops1, _ = device_profile(lambda: loam.loam_odometry(
             x[:1], m[:1], cfg))
         _, busy, opsk, top = device_profile(lambda: loam.loam_odometry(
@@ -2324,8 +2378,9 @@ def loam_phase(dev, refs):
               f"points, capacity {mask.shape[1]}; {gen_s:.1f} s to ray-cast "
               f"on the host), f32 on the card: {sec:.2f} s, "
               f"{(LOAM_SCANS - 1) / sec:.2f} scans/s ((S-1)/sec; {card}), "
-              f"{int(out.n_keyframes)} keyframes; rerun bit-identical: "
-              f"{same}; synchronising calls by line: {syncs}")
+              f"{int(out.n_keyframes)} keyframes; rerun over the first {r} "
+              f"scans bit-identical: {same}; synchronising calls by line "
+              f"there: {syncs}")
         print(f"  {per_scan:.1f} device operations a scan "
               f"({busy / LOAM_PROFILE_SCANS:.3f} ms device busy a scan over "
               f"scans 1-{LOAM_PROFILE_SCANS}, with scan 0's set-up); top "
@@ -2553,10 +2608,11 @@ def smoother_phase(dev, refs):
 
     tmp = tempfile.TemporaryDirectory()
     rc, stdout, app_s = run_module("toyslam_tpu_torch.apps.fusion_demo",
-                                   tmp.name)
+                                   tmp.name, "--duration",
+                                   str(FUSION_DEMO_S))
     tmp.cleanup()
-    print(f"  fusion_demo at its defaults ({app_s:.1f} s with the process "
-          f"start): exit {rc}")
+    print(f"  fusion_demo --duration {FUSION_DEMO_S} ({app_s:.1f} s with "
+          f"the process start): exit {rc}")
     for ln in stdout.splitlines()[:4]:
         print(f"    {ln}")
     check(rc == 0, "fusion_demo failed its gate (smoothed RMSE below the "
@@ -2975,6 +3031,280 @@ def bag_phase(dev, gt, cfg, bag_job, app_files):
     return launch
 
 
+def fleet_smoother_args(dtype, dev):
+    """smoother-fleet-64's logs stacked on a lane axis on ``dev``."""
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import jax_smoother_refs
+
+    logs = [jax_smoother_refs.bench_log(M=FLEET_KF, seed=FLEET_SEED0 + b)
+            for b in range(FLEET_LOGS)]
+    per = [smoother_args(log, dtype, dev) for log in logs]
+    return [torch.stack(parts) for parts in zip(*per)], logs
+
+
+def smoother_fleet_phase(dev):
+    """Phase 29, smoother-fleet-64: sharded_batch_fusion over 64 logs on
+    the card in f64 and f32, its host syncs, rate and device operations a
+    keyframe round; lanes 0-3 against single-log runs; the chunks."""
+    import torch
+
+    from toyslam_tpu_torch.parallel import batch
+    from toyslam_tpu_torch.pipelines import batch_fusion
+
+    card = card_line()
+    cfg = batch_fusion.BatchFusionConfig()
+    K = cfg.window.window_size
+    n_marg = FLEET_KF - K
+    mesh = [dev]
+    runs, stats = {}, {}
+    for dtype, chunk in ((torch.float64, 64), (torch.float32, 64),
+                         (torch.float32, 16)):
+        args, logs = fleet_smoother_args(dtype, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, syncs = count_syncs(lambda: batch.sharded_batch_fusion(
+            mesh, *args, config=cfg, chunk=chunk))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        name = f"{str(dtype)[6:]} chunk {chunk}"
+        runs[name] = out
+        eigh = sum(v for k, v in syncs.items() if "estimators/window" in k)
+        other = sum(v for k, v in syncs.items()
+                    if "estimators/window" not in k)
+        stats[name] = {"seconds": sec,
+                       "keyframes_per_s": FLEET_LOGS * FLEET_KF / sec,
+                       "syncs": eigh + other}
+        print(f"phase 29 smoother-fleet-64 {name}: {FLEET_LOGS} logs x "
+              f"{FLEET_KF} keyframes, window {K}: {sec:.2f} s, "
+              f"{FLEET_LOGS * FLEET_KF / sec:.1f} keyframes/s aggregate "
+              f"({card}); synchronising calls by line: {syncs}")
+        check(all(bool(torch.isfinite(t).all()) for t in out[:5]),
+              f"smoother-fleet-64 {name}: an output is not finite")
+        # eigh's one a marginalisation for all lanes of a chunk, nothing else
+        check(eigh == n_marg * -(-FLEET_LOGS // chunk) and other == 0,
+              f"smoother-fleet-64 {name}: host syncs other than eigh's one "
+              f"a marginalisation round")
+    # Device operations a keyframe round: the f32 fleet resumed from its
+    # final window over the logs' last keyframes (a full window).
+    args32, logs = fleet_smoother_args(torch.float32, dev)
+    last = runs["float32 chunk 64"]
+    state = batch_fusion.NavState(*(x[:, -1] for x in last[:5]))
+    wall, busy, ops, top = device_profile(
+        lambda: batch_fusion.batch_fusion_lanes(
+            *(a[:, -FLEET_PROFILE_KF:] for a in args32), config=cfg,
+            init_window=last.win, init_state=state, initialized=True))
+    print(f"  {ops / FLEET_PROFILE_KF:.1f} device operations a keyframe "
+          f"round of 64 lanes ({busy / FLEET_PROFILE_KF:.3f} ms device busy "
+          f"of {wall / FLEET_PROFILE_KF:.1f} ms wall a round); top: "
+          + "; ".join(f"{k[:50]} x{c} {t:.3f} ms" for k, c, t in top[:4]))
+
+    # Lanes 0-3 in f64 against the single-log runs on the card.
+    args64, _ = fleet_smoother_args(torch.float64, dev)
+    f64 = runs["float64 chunk 64"]
+    dev_p, dev_v = [], []
+    t0 = time.perf_counter()
+    for b in range(FLEET_CHECKED_LANES):
+        one = batch_fusion.batch_fusion(*(a[b] for a in args64), config=cfg)
+        dev_p.append(float((one.kf_p - f64.kf_p[b]).abs().max()))
+        dev_v.append(float((one.kf_v - f64.kf_v[b]).abs().max()))
+    single_s = (time.perf_counter() - t0) / FLEET_CHECKED_LANES
+    print(f"  lanes 0-{FLEET_CHECKED_LANES - 1} f64 against single-log "
+          f"batch_fusion on the card ({single_s:.2f} s a log, "
+          f"{FLEET_KF / single_s:.2f} keyframes/s): position "
+          f"{max(dev_p):.3g} m, velocity {max(dev_v):.3g} m/s (bound "
+          f"{FLEET_LANE_F64_M} m)")
+    check(max(dev_p) <= FLEET_LANE_F64_M,
+          "smoother-fleet-64: an f64 lane far from its single-log run")
+    # f32 lanes: finite (above) and within twice JAX's f32 drift of f64.
+    p64 = f64.kf_p.cpu().numpy()
+    v64 = f64.kf_v.cpu().numpy()
+    for name in ("float32 chunk 64", "float32 chunk 16"):
+        o = runs[name]
+        dp = np.linalg.norm(o.kf_p.double().cpu().numpy() - p64, axis=-1)
+        dv = np.linalg.norm(o.kf_v.double().cpu().numpy() - v64, axis=-1)
+        print(f"  {name} against the f64 lanes: position max "
+              f"{dp.max():.4f} m, velocity median {np.median(dv):.4f} m/s "
+              f"(bounds {2 * JAX_DRIFT_POS_M:.3f} m, "
+              f"{2 * JAX_DRIFT_VEL:.3f} m/s)")
+        check(dp.max() <= 2 * JAX_DRIFT_POS_M
+              and np.median(dv) <= 2 * JAX_DRIFT_VEL,
+              f"smoother-fleet-64 {name}: f32 drifts from f64 more than "
+              f"twice as far as the JAX package's")
+    a, b = runs["float32 chunk 64"], runs["float32 chunk 16"]
+    same = all(torch.equal(x, y) for x, y in zip(a[:6], b[:6]))
+    chunk_dp = float((a.kf_p - b.kf_p).abs().max())
+    print(f"  chunk 16 against chunk 64 (f32): bit-identical {same}, "
+          f"position max {chunk_dp:.3g} m")
+    return {"runs": stats, "device_ops_per_round": ops / FLEET_PROFILE_KF,
+            "lane_f64_m": max(dev_p), "single_log_s": single_s}
+
+
+def _shard_counts(before):
+    from toyslam_tpu_torch.ops import ndt_kernels
+
+    return {k: ndt_kernels.LAUNCHES[k] - before.get(k, 0)
+            for k in ndt_kernels.LAUNCHES}
+
+
+def gloo_worker(addr, rank, in_path, out_path):
+    """One of phase 29's two processes: its half of the align-65k source
+    on cuda:0, the sums all-reduced over Gloo with the other."""
+    import torch
+
+    from toyslam_tpu_torch.core.pointcloud import PointCloud
+    from toyslam_tpu_torch.parallel import batch
+    from toyslam_tpu_torch.registration import ndt
+
+    data = torch.load(in_path)  # on the card it was saved from
+    amap = ndt.NDTMap(*data["map"])
+    xyzi, mask = data["xyzi"], data["mask"]
+    dev = xyzi.device
+    half = mask.shape[0] // 2
+    mine = PointCloud(xyzi[rank * half:(rank + 1) * half],
+                      mask[rank * half:(rank + 1) * half])
+    batch.initialize_multihost(addr, 2, rank, timeout=GLOO_TIMEOUT_S)
+    batch.initialize_multihost(addr, 2, rank, timeout=GLOO_TIMEOUT_S)
+    t0 = time.perf_counter()
+    res = batch.sharded_align([dev], amap, mine, None, ndt.NDTConfig())
+    sec = time.perf_counter() - t0
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    np.savez(out_path, transform=res.transform.numpy(),
+             iterations=res.iterations, evaluations=res.evaluations,
+             seconds=sec)
+
+
+def sharded_align_phase(dev, amap, src):
+    """Phase 29, sharded-align and multihost: the align-65k pair split
+    over meshes of repeated cuda:0, exact and frozen, against ndt_align;
+    every shard's kernel call held to its plain version; then two
+    processes joined over Gloo."""
+    import socket
+
+    import torch
+
+    from toyslam_tpu_torch.ops import ndt_kernels
+    from toyslam_tpu_torch.parallel import batch
+    from toyslam_tpu_torch.registration import ndt
+
+    card = card_line()
+    launched = {k: 0 for k in ndt_kernels.LAUNCHES}
+    modes = {"exact": ndt.NDTConfig(),
+             "frozen": ndt.NDTConfig(frozen_linesearch=True,
+                                     regather_iterations=4)}
+    out = {}
+    for mode, cfg in modes.items():
+        ref = ndt.ndt_align(amap, src, None, cfg)
+        ref_ms, _ = host_ms(lambda: ndt.ndt_align(amap, src, None, cfg),
+                            SHARD_TIMING_REPS)
+        print(f"phase 29 sharded-align {mode}: unsharded ndt_align "
+              f"{ref_ms:.2f} ms/align, iterations {ref.iterations}, "
+              f"evaluations {ref.evaluations}, gathers {ref.gathers}")
+        for n in SHARD_MESHES:
+            mesh = [dev] * n
+            before = dict(ndt_kernels.LAUNCHES)
+            res = batch.sharded_align(mesh, amap, src, None, cfg)
+            counts = _shard_counts(before)
+            for k, v in counts.items():
+                launched[k] += v
+            want = ({"ndt_terms_gathered": res.evaluations * n,
+                     "ndt_gather_repack": 0, "ndt_terms_packed": 0}
+                    if mode == "exact" else
+                    {"ndt_terms_gathered": 0,
+                     "ndt_gather_repack": res.gathers * n,
+                     "ndt_terms_packed": res.evaluations * n})
+            d_t, d_r = pose_diff(res.transform, ref.transform)
+            diff = float((res.transform - ref.transform).abs().max())
+            calls = []
+            with checked_plain_route(calls):
+                plain = batch.sharded_align(mesh, amap, src, None, cfg)
+            bad = [c for c in calls if not c[3]]
+            worst = max(c[2][0] if isinstance(c[2], tuple) else c[2]
+                        for c in calls)
+            ms, _ = host_ms(lambda: batch.sharded_align(mesh, amap, src,
+                                                        None, cfg),
+                            SHARD_TIMING_REPS)
+            print(f"  [cuda:0] x {n}: {ms:.2f} ms/align ({card}), "
+                  f"iterations {res.iterations}, evaluations "
+                  f"{res.evaluations}, launches {counts} (expected {want}),"
+                  f" host copies {res.host_syncs}; transform vs ndt_align "
+                  f"{diff:.3g} ({d_t:.3g} m, {d_r:.3g} rad; bound "
+                  f"{SHARD_TOL}); {len(calls)} shard kernel calls held to "
+                  f"their plain versions, worst {worst:.3g}, the plain "
+                  f"route's iterations {plain.iterations}")
+            check(res.converged, f"sharded-align {mode} x{n}: not converged")
+            check(counts == want, f"sharded-align {mode} x{n}: launches "
+                                  f"{counts}, expected {want}")
+            check(res.host_syncs == res.evaluations * n,
+                  f"sharded-align {mode} x{n}: not one copy a shard an "
+                  f"evaluation")
+            check(diff <= SHARD_TOL and res.iterations == ref.iterations,
+                  f"sharded-align {mode} x{n}: transform {diff:.3g} from "
+                  f"ndt_align or iterations {res.iterations} != "
+                  f"{ref.iterations}")
+            check(calls and not bad, f"sharded-align {mode} x{n}: a shard's "
+                                     f"kernel disagrees with its plain "
+                                     f"version: {bad[:3]}")
+            out[f"{mode} x{n}"] = {"ms": ms, "iterations": res.iterations,
+                                   "launches": counts}
+        out[f"{mode} unsharded_ms"] = ref_ms
+
+    # Two processes on cuda:0 over Gloo against one process over
+    # [cuda:0] x 2.
+    cfg = modes["exact"]
+    one = batch.sharded_align([dev, dev], amap, src, None, cfg)
+    tmp = tempfile.TemporaryDirectory()
+    d = Path(tmp.name)
+    torch.save({"map": tuple(amap), "xyzi": src.xyzi, "mask": src.mask},
+               d / "in.pt")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        addr = f"localhost:{sock.getsockname()[1]}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--gloo-rank", addr,
+         str(rank), str(d / "in.pt"), str(d / f"out{rank}.npz")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=Path(__file__).resolve().parent) for rank in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=2 * GLOO_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure("multihost: a Gloo process hung")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"multihost: rank {rank} failed:\n"
+                                 f"{log[-2000:]}")
+    got = [dict(np.load(d / f"out{rank}.npz")) for rank in range(2)]
+    tmp.cleanup()
+    diff = max(float(np.abs(g["transform"] - one.transform.numpy()).max())
+               for g in got)
+    same = all(np.array_equal(g["transform"], one.transform.numpy())
+               for g in got)
+    print(f"  multihost: two processes on cuda:0 over Gloo, {wall:.1f} s "
+          f"wall with their start ({card}); align "
+          f"{float(got[0]['seconds']) * 1e3:.1f} ms in rank 0 (the first, "
+          f"with its warm-up); iterations "
+          f"{[int(g['iterations']) for g in got]} against "
+          f"{one.iterations}; transform vs one process over [cuda:0] x 2: "
+          f"{diff:.3g} (bit-identical {same})")
+    check(all(int(g["iterations"]) == one.iterations for g in got)
+          and diff <= SHARD_TOL, "multihost: the two-process align differs "
+                                 "from the one-process sharded_align")
+    out["multihost_s"] = wall
+    return out, launched
+
+
 def main() -> int:
     import torch
 
@@ -2996,6 +3326,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    script_t0 = time.perf_counter()
     dev = torch.device("cuda:0")
     refs = HostJob("references")  # f64 host runs for phases 25-26
     gnss_ref = HostJob("gnss")  # phase 27's f64 run_epochs on the host
@@ -3763,7 +4094,13 @@ def main() -> int:
     smoother_phase(dev, refs)
     gnss_phase(dev, gnss_ref)
     bag_launch = bag_phase(dev, gt, cfg, bag_job, app_files)
+    t0 = time.perf_counter()
+    fleet_smoother = smoother_fleet_phase(dev)
+    shard, shard_launch = sharded_align_phase(dev, amap, a_src[1])
+    print(f"phase 29: {time.perf_counter() - t0:.1f} s; the whole script "
+          f"{time.perf_counter() - script_t0:.1f} s")
 
+    card = card_line()
     print(card)
     kernels = [{
         "name": name, "route": "cuda", "source": source_path,
@@ -3787,6 +4124,9 @@ def main() -> int:
             kernels[list(KERNELS).index(name)][key] = counts.get(name, 0)
     for name, extra in fleet.items():  # phase 24
         kernels[list(KERNELS).index(name)].update(extra)
+    for name in ndt_names:  # phase 29, every mesh and mode
+        kernels[list(KERNELS).index(name)]["sharded_align_launches"] = (
+            shard_launch[name])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3797,6 +4137,9 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--host-job"]:
         host_job(*sys.argv[2:5])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--gloo-rank"]:
+        gloo_worker(sys.argv[2], int(sys.argv[3]), *sys.argv[4:6])
         sys.exit(0)
     try:
         sys.exit(main())

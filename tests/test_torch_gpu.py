@@ -1078,3 +1078,88 @@ def test_scan_stream_on_card_equals_stack(cuda, tmp_path, prefetch):
     assert len(sums) == len(paths)
     assert int(torch.stack(sums).sum()) == 0
     assert stream.wait_s >= 0.0
+
+
+def _fleet_logs(n, M):
+    """``tests/jax_smoother_refs.bench_log``'s generator (bench.py's
+    smoother log) at seeds 2.. as lane tensors, f64 on the CPU."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import jax_smoother_refs
+
+    logs = [jax_smoother_refs.bench_log(M=M, seed=2 + b) for b in range(n)]
+    out = [torch.from_numpy(np.stack([lg[k] for lg in logs])).double()
+           for k in ("acc", "gyro", "dt")]
+    out += [torch.from_numpy(np.stack([lg["valid"] for lg in logs])),
+            torch.from_numpy(np.stack([lg["t"] for lg in logs])).double(),
+            torch.from_numpy(np.stack([lg["p"] for lg in logs])).double(),
+            torch.ones((n, M), dtype=torch.bool)]
+    return out
+
+
+def test_batch_fusion_lanes_on_card_match_single_logs(cuda):
+    """4 lanes of bench.py's smoother log generator (seeds 2-5, 10
+    keyframes, window 6: 4 marginalisations) through ``batch_fusion_lanes``
+    on the card in f64 against each log's single-log ``batch_fusion`` on
+    the card: positions within 2.5e-7 m (the card read 1.22e-7 m, NVIDIA
+    H100 80GB HBM3, 700 W: batched and single solves round otherwise);
+    the lane run's only host synchronisations are eigh's, one a
+    marginalisation for all lanes."""
+    import warnings
+
+    from toyslam_tpu_torch.estimators import window
+    from toyslam_tpu_torch.pipelines import batch_fusion
+
+    M = 10
+    args = [a.to(cuda) for a in _fleet_logs(4, M)]
+    cfg = batch_fusion.BatchFusionConfig(
+        window=window.WindowConfig(window_size=6, gn_iterations=4))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = batch_fusion.batch_fusion_lanes(*args, config=cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in seen if "synchroniz" in str(w.message)
+             and "debug mode" not in str(w.message)]
+    assert len(syncs) == M - 6
+    assert out.kf_p.shape == (4, M, 3) and out.win.count.is_cuda
+    worst = 0.0
+    for b in range(4):
+        one = batch_fusion.batch_fusion(*(a[b] for a in args), config=cfg)
+        worst = max(worst, float((one.kf_p - out.kf_p[b]).abs().max()))
+        assert torch.equal(one.reset, out.reset[b])
+    print(f"lanes against single logs on the card: {worst:.3g} m")
+    assert worst < 2.5e-7
+
+
+def test_sharded_align_on_card_matches_ndt_align(cuda, clouds):
+    """``sharded_align`` over [cuda] x 4 on the 8192-capacity pair, exact
+    and frozen with 4 regathers: the transform within 1e-5 of
+    ``ndt_align`` (tests/test_fusion.py's bound) with equal iterations;
+    K1 (exact) or K2 and K3 (frozen) launched once a shard an evaluation
+    or gather, one host copy a shard an evaluation."""
+    from toyslam_tpu_torch.parallel import batch
+
+    src, tgt = (pointcloud.PointCloud(c.xyzi.to(cuda), c.mask.to(cuda))
+                for c in clouds)
+    for cfg in (ndt.NDTConfig(), ndt.NDTConfig(frozen_linesearch=True,
+                                               regather_iterations=4)):
+        m = ndt.build_ndt_map(tgt, cfg)
+        ref = ndt.ndt_align(m, src, None, cfg)
+        ndt_kernels.reset_launch_counts()
+        out = batch.sharded_align([cuda] * 4, m, src, None, cfg)
+        counts = dict(ndt_kernels.LAUNCHES)
+        assert out.iterations == ref.iterations
+        assert float((out.transform - ref.transform).abs().max()) <= 1e-5
+        assert out.host_syncs == 4 * out.evaluations
+        if cfg.frozen_linesearch:
+            assert counts["ndt_gather_repack"] == 4 * out.gathers
+            assert counts["ndt_terms_packed"] == 4 * out.evaluations
+            assert counts["ndt_terms_gathered"] == 0
+        else:
+            assert counts["ndt_terms_gathered"] == 4 * out.evaluations

@@ -20,6 +20,7 @@ from toyslam_tpu_torch.estimators.eskf import ESKFParams, ESKFState
 from toyslam_tpu_torch.estimators.factors import NavState
 from toyslam_tpu_torch.estimators.preintegration import (PreintegrationParams,
                                                           Preintegrated)
+from toyslam_tpu_torch.estimators.trilateration import TrilaterationConfig
 from toyslam_tpu_torch.estimators.window import SlidingWindow, WindowConfig
 from toyslam_tpu_torch.gnss.atmosphere import IonoParams
 from toyslam_tpu_torch.gnss.ephemeris import GpsEphemeris
@@ -36,6 +37,7 @@ from toyslam_tpu_torch.registration.gicp import GICPConfig
 from toyslam_tpu_torch.registration.icp import ICPConfig
 from toyslam_tpu_torch.registration.ndt import NDTConfig, NDTMap
 from toyslam_tpu_torch.sim.gps import GpsSimConfig
+from toyslam_tpu_torch.sim.sensors import ImuSimParams
 from toyslam_tpu_torch.sim.urban import Buildings
 
 
@@ -182,6 +184,14 @@ def raim_config(fields: Mapping) -> RaimConfig:
 
 def gps_sim_config(fields: Mapping) -> GpsSimConfig:
     return _shared_fields(GpsSimConfig, fields)
+
+
+def trilateration_config(fields: Mapping) -> TrilaterationConfig:
+    return _shared_fields(TrilaterationConfig, fields)
+
+
+def imu_sim_params(fields: Mapping) -> ImuSimParams:
+    return _shared_fields(ImuSimParams, fields)
 
 
 def iono_params(fields, device="cuda") -> IonoParams:

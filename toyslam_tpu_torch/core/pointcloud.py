@@ -13,6 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from toyslam_tpu_torch.core import se3
 from toyslam_tpu_torch.ops.segment import (INT_MAX, run_bookkeeping_lanes,
                                            seg_reduce_lanes, sort_lanes)
 
@@ -66,6 +67,21 @@ def pad_to(cloud: PointCloud, capacity: int) -> PointCloud:
         torch.cat([cloud.xyzi, pad], 0),
         torch.cat([cloud.mask, torch.zeros(capacity - n, dtype=torch.bool,
                                            device=cloud.mask.device)], 0))
+
+
+def shrink_to(cloud: PointCloud, capacity: int) -> PointCloud:
+    """The first ``capacity`` lanes: a downsampled cloud has its valid
+    points first, so it can drop its padding (valid points past
+    ``capacity`` are lost)."""
+    return PointCloud(cloud.xyzi[:capacity], cloud.mask[:capacity])
+
+
+def transform(cloud: PointCloud, T) -> PointCloud:
+    """A rigid transform ``T [4, 4]`` of the valid points; padded lanes
+    keep their sentinel, intensity is carried."""
+    moved = se3.transform_points(T, cloud.xyzi)
+    return PointCloud(torch.where(cloud.mask[:, None], moved, cloud.xyzi),
+                      cloud.mask)
 
 
 def _full(value, like):

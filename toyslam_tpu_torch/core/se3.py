@@ -6,14 +6,74 @@ NDT's 6-vector pose chart is ``p = [tx ty tz roll pitch yaw]`` with
 Eigen's ``eulerAngles(0, 1, 2)`` branch (first angle in ``[0, pi]``).
 ``rot_to_quat`` feeds the trajectory writers of ``utils/evalio``; the
 Hamilton ``[w, x, y, z]`` quaternion helpers serve the ESKF and the
-simulators. Every function is dtype-generic and works on any device.
+simulators; ``rot_mat_2d`` and ``angle_mod`` are the 2-D helpers of the
+reference's ``ICP/utils/angle.py``. Every function is dtype-generic and
+works on any device.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+
+def _axis_rot(a, rows):
+    """[..., 3, 3] from rows of "c", "s", "-s", "0", "1" over angles a."""
+    c, s = torch.cos(a), torch.sin(a)
+    pick = {"c": c, "s": s, "-s": -s, "0": torch.zeros_like(a),
+            "1": torch.ones_like(a)}
+    return torch.stack([torch.stack([pick[k] for k in r], -1) for r in rows],
+                       -2)
+
+
+def rot_x(a):
+    """Rotations about x by angles a [...] -> [..., 3, 3]."""
+    return _axis_rot(a, (("1", "0", "0"), ("0", "c", "-s"),
+                         ("0", "s", "c")))
+
+
+def rot_y(a):
+    """Rotations about y by angles a [...] -> [..., 3, 3]."""
+    return _axis_rot(a, (("c", "0", "s"), ("0", "1", "0"),
+                         ("-s", "0", "c")))
+
+
+def rot_z(a):
+    """Rotations about z by angles a [...] -> [..., 3, 3]."""
+    return _axis_rot(a, (("c", "-s", "0"), ("s", "c", "0"),
+                         ("0", "0", "1")))
+
+
+def rot_mat_2d(angle):
+    """2-D rotations [..., 2, 2] of angles [...]: a tensor gives a tensor,
+    anything else (the numpy geometry of ``utils/plotio``) a numpy
+    array."""
+    if isinstance(angle, torch.Tensor):
+        c, s = torch.cos(angle), torch.sin(angle)
+        return torch.stack([torch.stack([c, -s], -1),
+                            torch.stack([s, c], -1)], -2)
+    c, s = np.cos(angle), np.sin(angle)
+    return np.stack([np.stack([c, -s], -1), np.stack([s, c], -1)], -2)
+
+
+def angle_mod(x, zero_2_2pi=False, degree=False):
+    """Angles x (a tensor) wrapped to [-pi, pi), or [0, 2 pi) with
+    ``zero_2_2pi``; in degrees with ``degree``. The [0, 2 pi) branch keeps
+    the JAX package's two float edges: a negative denormal, which the
+    remainder passes through, clamps to 0, and a tiny negative x, whose
+    remainder rounds to 2 pi, wraps to 0."""
+    if degree:
+        x = torch.deg2rad(x)
+    if zero_2_2pi:
+        y = torch.clamp(torch.remainder(x, 2.0 * math.pi), min=0.0)
+        y = torch.where(y >= 2.0 * math.pi, torch.zeros_like(y), y)
+    else:
+        y = torch.remainder(x + math.pi, 2.0 * math.pi) - math.pi
+    if degree:
+        y = torch.rad2deg(y)
+    return y
 
 
 def euler_xyz_to_rot(rpy):

@@ -177,24 +177,27 @@ def synthesize_imu_gap(start_state_q, start_v, end_state_q, end_v, dt_total,
     """Constant-rate IMU samples for a buffer gap (the batch node's
     synthetic-IMU fallback, ``uwb_imu_batch_node.cpp:3646-3781``): gyro
     from the relative rotation, acceleration from the velocity change plus
-    the gravity reaction in the body frame. ``dt_total`` is a 0-d tensor.
-    Returns (acc [n, 3], gyro [n, 3], dts [n])."""
+    the gravity reaction in the body frame. Quaternions [..., 4],
+    velocities [..., 3], ``dt_total`` a tensor [...]. Returns (acc [...,
+    n, 3], gyro [..., n, 3], dts [..., n])."""
     dtype, dev = start_v.dtype, start_v.device
     if gravity_world is None:
         gravity_world = torch.eye(3, dtype=dtype, device=dev)[2] * -9.81
+    batch = start_v.shape[:-1]
     dq = se3.quat_multiply(se3.quat_conjugate(start_state_q), end_state_q)
-    dq = torch.where(dq[0] < 0, -dq, dq)
-    angle = 2.0 * torch.arccos(torch.clamp(dq[0], -1.0, 1.0))
-    axis_n = torch.linalg.norm(dq[1:4])
-    axis = dq[1:4] / torch.clamp(axis_n, min=1e-9)
-    omega = torch.where(axis_n > 1e-9, axis * angle / dt_total,
+    dq = torch.where(dq[..., :1] < 0, -dq, dq)
+    angle = 2.0 * torch.arccos(torch.clamp(dq[..., 0], -1.0, 1.0))
+    axis_n = torch.linalg.norm(dq[..., 1:4], dim=-1, keepdim=True)
+    axis = dq[..., 1:4] / torch.clamp(axis_n, min=1e-9)
+    omega = torch.where(axis_n > 1e-9,
+                        axis * angle[..., None] / dt_total[..., None],
                         torch.zeros_like(axis))
-    a_world = (end_v - start_v) / dt_total - gravity_world
+    a_world = (end_v - start_v) / dt_total[..., None] - gravity_world
     R_T = se3.quat_to_rot(se3.quat_conjugate(start_state_q))
-    a_body = R_T @ a_world
-    acc = a_body.expand(n_samples, 3)
-    gyro = omega.expand(n_samples, 3)
-    dts = (dt_total / n_samples).expand(n_samples)
+    a_body = (R_T @ a_world[..., None])[..., 0]
+    acc = a_body[..., None, :].expand(batch + (n_samples, 3))
+    gyro = omega[..., None, :].expand(batch + (n_samples, 3))
+    dts = (dt_total / n_samples)[..., None].expand(batch + (n_samples,))
     return acc, gyro, dts
 
 

@@ -20,6 +20,17 @@ becomes a Python branch) and reads it from the device only when not
 given. Cholesky and inverse failures are read from ``info`` on the
 device (``cholesky_ex``, ``inv_ex``): where JAX's factor fills with NaN
 and its step is rejected, a failed factor here zeroes the step.
+
+A window of lanes (JAX's ``vmap`` over independent logs) carries a
+leading lane axis B on every leaf (``window_init(..., lanes=B)``); its
+lanes push a keyframe together, so they share one host count. Every
+function here takes either kind: one window runs as a lane window of one
+lane. A lane window's Jacobians come from one ``jvp`` a tangent direction
+for all lanes (a lane's residuals depend on its own tangent only), its
+solves are batched ``cholesky_ex``/``cholesky_solve`` with each lane's
+``info`` rejecting that lane's step, and its marginalisation is one
+batched ``inv_ex`` and one batched ``eigh``: one host synchronisation a
+marginalisation for all lanes.
 """
 
 from __future__ import annotations
@@ -77,6 +88,9 @@ class WindowConfig(NamedTuple):
 
 
 class SlidingWindow(NamedTuple):
+    """One window; a lane window has a leading lane axis B on every
+    leaf."""
+
     states: NavState  # each field [K, ...]
     timestamps: torch.Tensor  # [K]
     meas_p: torch.Tensor  # [K, 3]
@@ -124,9 +138,40 @@ def _empty_preint(K, dtype, device) -> Preintegrated:
         sum_dt=torch.zeros((K,), dtype=dtype, device=device))
 
 
+def _tree_map(fn, tree):
+    """``fn`` on every tensor of a nest of NamedTuples."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_tree_map(fn, sub) for sub in tree))
+    return fn(tree)
+
+
+def _lanes_of(win: SlidingWindow):
+    """The lane count of a lane window, None for one window."""
+    return win.meas_p.shape[0] if win.meas_p.dim() == 3 else None
+
+
+def _as_lane(tree):
+    """One window (or state, or preintegral) as a lane of one."""
+    return _tree_map(lambda x: x[None], tree)
+
+
+def _one_lane(tree):
+    return _tree_map(lambda x: x[0], tree)
+
+
+def _slot(tree, i):
+    """Slot ``i`` (an index or a slice) of every leaf of a lane tree."""
+    return type(tree)(*(x[:, i] for x in tree))
+
+
 def window_init(config: WindowConfig = WindowConfig(), dtype=torch.float32,
-                device="cuda") -> SlidingWindow:
-    """An empty window on ``device`` (the card unless named otherwise)."""
+                device="cuda", lanes: int | None = None) -> SlidingWindow:
+    """An empty window on ``device`` (the card unless named otherwise), or
+    ``lanes`` of them as one lane window."""
+    if lanes is not None:
+        one = window_init(config, dtype, device)
+        return _tree_map(
+            lambda x: x.expand((lanes,) + x.shape).contiguous(), one)
     K = config.window_size
 
     def zeros(*shape, dt=dtype):
@@ -219,10 +264,11 @@ class _Weights(NamedTuple):
 
 
 class _Terms(NamedTuple):
-    """What the residuals read besides the tangent, all floating-point:
-    the window's linearisation point and measurements, the whitening of
-    its preintegrals, and its masks as 0/1 gates ([K, 1] a slot, [K-1, 1]
-    a pair, 0-d for the prior and the simplified-mode switch)."""
+    """What the residuals read besides the tangent, all floating-point, of
+    a lane window: its linearisation point and measurements, the whitening
+    of its preintegrals, the prior with a slot axis of one, and its masks
+    as 0/1 gates ([B, K, 1] a slot, [B, K-1, 1] a pair, [B, 1, 1] for the
+    prior and the simplified-mode switch)."""
 
     states: NavState
     meas_p: torch.Tensor
@@ -254,7 +300,10 @@ def _terms(win: SlidingWindow, config: WindowConfig, whiten) -> _Terms:
     dtype = win.meas_p.dtype
 
     def gate(mask):
-        return mask.to(dtype)[:, None]
+        return mask.to(dtype)[..., None]
+
+    def lane_gate(mask):
+        return mask.to(dtype)[:, None, None]
 
     c = config
     k = _Weights(*(torch.full((), v, dtype=dtype, device=win.meas_p.device)
@@ -271,18 +320,22 @@ def _terms(win: SlidingWindow, config: WindowConfig, whiten) -> _Terms:
     return _Terms(
         win.states, win.meas_p, win.meas_v, win.meas_q, win.mean_acc,
         win.preints, win.pair_dt, win.lin_ba, win.lin_bg,
-        win.prior_sqrt_info, win.prior_r0, win.prior_state, whiten,
+        win.prior_sqrt_info[:, None], win.prior_r0[:, None],
+        _tree_map(lambda x: x[:, None], win.prior_state), whiten,
         _pos_weight(config, win.meas_p), gate(win.active),
         gate(win.meas_valid & win.active), gate(win.meas_v_valid & win.active),
         gate(win.meas_q_valid & win.active), gate(win.acc_valid & win.active),
-        gate(win.pair_valid), gate(win.pair_valid[:-1] & win.pair_valid[1:]),
-        win.prior_valid.to(dtype),
-        (win.opt_count >= config.simplified_first_n).to(dtype), k)
+        gate(win.pair_valid),
+        gate(win.pair_valid[:, :-1] & win.pair_valid[:, 1:]),
+        lane_gate(win.prior_valid),
+        lane_gate(win.opt_count >= config.simplified_first_n), k)
 
 
 def _stack_residuals(t: _Terms, config: WindowConfig, deltas):
-    """All window residuals as one vector, as a function of the tangent
-    deltas [K, 15]; inactive and invalid entries are zero."""
+    """All window residuals of each lane as one row [B, R], as a function
+    of the tangent deltas [B, K, 15]; inactive and invalid entries are
+    zero."""
+    B = deltas.shape[0]
     states = factors.state_boxplus(t.states, deltas)
     res = []
     r_pos = factors.position_residual(states, t.meas_p, t.w_pos) * t.pos
@@ -301,8 +354,8 @@ def _stack_residuals(t: _Terms, config: WindowConfig, deltas):
         res.append(factors.yaw_only_orientation_residual(
             states, _yaw(t.meas_q), t.k.yaw) * t.att)
 
-    s_i = NavState(*(x[:-1] for x in states))
-    s_j = NavState(*(x[1:] for x in states))
+    s_i = _slot(states, slice(None, -1))
+    s_j = _slot(states, slice(1, None))
     res.append(_imu_whitened(s_i, s_j, t.preints, t.pair_dt, t.lin_ba,
                              t.lin_bg, t.whiten, t.pair))
 
@@ -328,14 +381,13 @@ def _stack_residuals(t: _Terms, config: WindowConfig, deltas):
         res.append(factors.orientation_smoothness_residual(
             s_i, s_j, t.k.smooth) * t.pair * t.full)
         res.append(factors.orientation_smoothness_residual(
-            NavState(*(x[:-2] for x in states)),
-            NavState(*(x[2:] for x in states)), t.k.smooth2)
-            * t.pair2 * t.full)
+            _slot(states, slice(None, -2)), _slot(states, slice(2, None)),
+            t.k.smooth2) * t.pair2 * t.full)
 
     res.append((_mv(t.prior_sqrt_info,
-                    _boxminus(_state_at(states, slice(0, 1)), t.prior_state))
+                    _boxminus(_slot(states, slice(0, 1)), t.prior_state))
                 + t.prior_r0) * t.prior)
-    return torch.cat([r.reshape(-1) for r in res])
+    return torch.cat([r.reshape(B, -1) for r in res], -1)
 
 
 def _leaves(tree):
@@ -355,16 +407,21 @@ def _rebuild(tree, leaves):
     return next(leaves)
 
 
-def _residual_and_jacobian(fn, n, *consts):
-    """(r(0), dr/dx at 0) of ``fn(x, *consts)`` on an n-vector x:
+def _residual_and_jacobian(fn, shape, *consts):
+    """(r(0), dr/dx at 0) of ``fn(x, *consts)`` on x of ``shape`` (B, n):
+    each of B lanes' residuals ``r [B, R]`` of its own n-vector. This is
     ``torch.func.jacfwd``'s construction (a ``vmap`` of ``jvp`` over the n
-    basis directions) that also returns the value. The constants go in as
-    primals of zero tangent rather than as closed-over tensors: an
-    operation between a dual tensor and a plain one takes a Python
-    decomposition under ``torch.func`` that costs ~30x a plain one."""
+    basis directions) that also returns the value; a direction moves every
+    lane's x at once, and as a lane's residuals depend on its own x only,
+    one ``jvp`` gives each lane's column. Returns r0 [B, R] and J [B, R,
+    n]. The constants go in as primals of zero tangent rather than as
+    closed-over tensors: an operation between a dual tensor and a plain
+    one takes a Python decomposition under ``torch.func`` that costs ~30x
+    a plain one."""
     flat = _leaves(consts)
     like = flat[0]
-    zero = torch.zeros(n, dtype=like.dtype, device=like.device)
+    n = shape[-1]
+    zero = torch.zeros(shape, dtype=like.dtype, device=like.device)
     basis = torch.eye(n, dtype=like.dtype, device=like.device)
     zero_t = [torch.zeros_like(c) for c in flat]
 
@@ -372,21 +429,25 @@ def _residual_and_jacobian(fn, n, *consts):
         return fn(x, *_rebuild(consts, iter(leaves)))
 
     def push(v):
-        r, t = jvp(g, (zero, *flat), (v, *zero_t))
+        r, t = jvp(g, (zero, *flat), (v.expand(shape), *zero_t))
         return t, r
 
-    J, r0 = vmap(push, out_dims=(1, None))(basis)
+    J, r0 = vmap(push, out_dims=(len(shape), None))(basis)
     return r0, J
 
 
 def window_optimize(win: SlidingWindow,
                     config: WindowConfig = WindowConfig()) -> SlidingWindow:
     """Damped Gauss-Newton on the window tangent (in place of Ceres'
-    SPARSE_NORMAL_CHOLESKY, ``:4639-4650``), then the post-solve clamps."""
+    SPARSE_NORMAL_CHOLESKY, ``:4639-4650``), then the post-solve clamps;
+    on a lane window, every lane at once."""
+    B = _lanes_of(win)
+    if B is None:
+        return _one_lane(window_optimize(_as_lane(win), config))
     K = config.window_size
     like = win.meas_p
     whiten = factors.imu_sqrt_info(win.preints)
-    act15 = win.active.repeat_interleave(15).to(like.dtype)
+    act15 = win.active.repeat_interleave(15, dim=1).to(like.dtype)
     diag = torch.diag_embed(config.damping + (1.0 - act15))
     # Per-block step clamp (a trust region: an unclamped f32 step on the
     # enormous whitened weights of short chunks can overflow a residual).
@@ -397,16 +458,18 @@ def window_optimize(win: SlidingWindow,
     terms = _terms(win, config, whiten)
     for _ in range(config.gn_iterations):
         r0, J = _residual_and_jacobian(
-            lambda d, t: _stack_residuals(t, config, d.view(K, 15)), K * 15,
-            terms._replace(states=states))
-        H = J.T @ J + diag
-        g = J.T @ r0
-        L, info = torch.linalg.cholesky_ex(0.5 * (H + H.T))
-        delta = -torch.cholesky_solve(g[:, None], L)[:, 0] * act15
+            lambda d, t: _stack_residuals(t, config, d.view(B, K, 15)),
+            (B, K * 15), terms._replace(states=states))
+        Jt = J.mT
+        H = Jt @ J + diag
+        g = Jt @ r0[..., None]
+        L, info = torch.linalg.cholesky_ex(0.5 * (H + H.mT))
+        delta = -torch.cholesky_solve(g, L)[..., 0] * act15
         # A failed factor (an indefinite H after a residual overflow)
-        # rejects the step, as JAX's NaN factor does.
-        delta = torch.where(info == 0, delta, torch.zeros_like(delta))
-        d = torch.clamp(delta.view(K, 15), -caps, caps)
+        # rejects the step of its lane, as JAX's NaN factor does.
+        delta = torch.where((info == 0)[:, None], delta,
+                            torch.zeros_like(delta))
+        d = torch.clamp(delta.view(B, K, 15), -caps, caps)
         d = torch.where(torch.isfinite(d), d, torch.zeros_like(d))
         states = factors.state_boxplus(states, d)
 
@@ -423,15 +486,18 @@ def window_optimize(win: SlidingWindow,
 
 def _marginal_residuals(t: _Terms, config: WindowConfig, delta30):
     """The residuals touching slot 0 that involve only slots 0 and 1, as a
-    function of their tangent [30] (``t`` holds the first pair's whitening).
-    Slots are kept as slices of one row: under ``torch.func.jacfwd`` a 0-d
-    value plus a Python number gets a float64 tangent in f32."""
+    function of their tangent [B, 30], one row [B, R] a lane (``t`` holds
+    the first pair's whitening). Slots are kept as slices of one row:
+    under ``torch.func.jacfwd`` a 0-d value plus a Python number gets a
+    float64 tangent in f32."""
+    B = delta30.shape[0]
     a, b = slice(0, 1), slice(1, 2)
-    d = delta30.view(2, 15)
-    s0 = factors.state_boxplus(_state_at(t.states, a), d[a])
-    s1 = factors.state_boxplus(_state_at(t.states, b), d[b])
+    d = delta30.view(B, 2, 15)
+    s0 = factors.state_boxplus(_slot(t.states, a), d[:, a])
+    s1 = factors.state_boxplus(_slot(t.states, b), d[:, b])
     parts = []
-    r_p0 = factors.position_residual(s0, t.meas_p[a], t.w_pos) * t.pos[a]
+    r_p0 = (factors.position_residual(s0, t.meas_p[:, a], t.w_pos)
+            * t.pos[:, a])
     if not config.use_gps and config.huber_delta > 0:
         # The same robust weight as the window's objective: an outlier fix
         # on the marginalised keyframe must not enter the prior at full
@@ -440,18 +506,18 @@ def _marginal_residuals(t: _Terms, config: WindowConfig, delta30):
     parts.append(r_p0)
     if config.use_gps and config.use_yaw_only_orientation:
         parts.append(factors.yaw_only_orientation_residual(
-            s0, _yaw(t.meas_q[a]), t.k.yaw) * t.att[a])
+            s0, _yaw(t.meas_q[:, a]), t.k.yaw) * t.att[:, a])
     if config.use_gps and config.use_gps_velocity \
             and config.enable_velocity_constraint:
-        parts.append(factors.velocity_residual(s0, t.meas_v[a], t.k.gps_vel)
-                     * t.vel[a])
+        parts.append(factors.velocity_residual(s0, t.meas_v[:, a],
+                                               t.k.gps_vel) * t.vel[:, a])
     if config.use_gps and config.use_gps_orientation:
         parts.append(factors.gps_orientation_residual(
-            s0, t.meas_q[a], t.k.gps_att) * t.att[a])
-    pre0 = Preintegrated(*(x[a] for x in t.preints))
-    parts.append(_imu_whitened(s0, s1, pre0, t.pair_dt[a], t.lin_ba[a],
-                               t.lin_bg[a], t.whiten, t.pair[a]))
-    act0 = t.act[a]
+            s0, t.meas_q[:, a], t.k.gps_att) * t.att[:, a])
+    parts.append(_imu_whitened(s0, s1, _slot(t.preints, a), t.pair_dt[:, a],
+                               t.lin_ba[:, a], t.lin_bg[:, a], t.whiten,
+                               t.pair[:, a]))
+    act0 = t.act[:, a]
     if config.enable_bias_constraint:
         parts.append(factors.bias_magnitude_residual(
             s0, t.k.bias_acc, t.k.bias_gyro) * act0)
@@ -463,23 +529,25 @@ def _marginal_residuals(t: _Terms, config: WindowConfig, delta30):
             s0, t.k.roll_pitch) * act0)
     if config.enable_gravity_alignment:
         parts.append(factors.gravity_alignment_residual(
-            s0, t.mean_acc[a], t.k.gravity_alignment, t.k.eps, t.k.gravity)
-            * t.acc[a])
+            s0, t.mean_acc[:, a], t.k.gravity_alignment, t.k.eps,
+            t.k.gravity) * t.acc[:, a])
     if config.enable_horizontal_velocity_incentive:
         parts.append(factors.horizontal_velocity_incentive_residual(
             s0, t.k.min_horizontal, t.k.horizontal, t.k.eps) * act0 * t.full)
     if config.enable_orientation_smoothness:
         parts.append(factors.orientation_smoothness_residual(
-            s0, s1, t.k.smooth) * t.pair[a] * t.full)
+            s0, s1, t.k.smooth) * t.pair[:, a] * t.full)
     parts.append((_mv(t.prior_sqrt_info, _boxminus(s0, t.prior_state))
                   + t.prior_r0) * t.prior)
-    return torch.cat([r.reshape(-1) for r in parts])
+    return torch.cat([r.reshape(B, -1) for r in parts], -1)
 
 
 def _shift(x, fill=None):
-    """x moved one slot towards 0; the last slot zero, or ``fill``."""
-    last = torch.zeros_like(x[:1]) if fill is None else fill[None]
-    return torch.cat([x[1:], last], 0)
+    """x [B, K, ...] moved one slot towards 0; the last slot zero, or
+    ``fill`` [...]."""
+    last = (torch.zeros_like(x[:, :1]) if fill is None
+            else fill.expand_as(x[:, :1]))
+    return torch.cat([x[:, 1:], last], 1)
 
 
 def _marginalize_oldest(win: SlidingWindow, config: WindowConfig):
@@ -490,34 +558,38 @@ def _marginalize_oldest(win: SlidingWindow, config: WindowConfig):
     (``MarginalizationInfo::marginalize``, ``:762-979``; the i <-> i+2
     smoothness term is dropped, as the reference's fixed (slot1, slot0)
     layout drops it, ``:1023-1030``), and installs the 15-dim prior on the
-    new slot 0. ``torch.linalg.eigh`` syncs with the host once.
+    new slot 0. ``torch.linalg.eigh`` syncs with the host once, for every
+    lane of a lane window.
     """
+    B = _lanes_of(win)
+    if B is None:
+        return _one_lane(_marginalize_oldest(_as_lane(win), config))
     dtype, dev = win.meas_p.dtype, win.meas_p.device
-    whiten0 = factors.imu_sqrt_info(
-        Preintegrated(*(x[:1] for x in win.preints)))
+    whiten0 = factors.imu_sqrt_info(_slot(win.preints, slice(0, 1)))
     r0, J = _residual_and_jacobian(
-        lambda d, t: _marginal_residuals(t, config, d), 30,
+        lambda d, t: _marginal_residuals(t, config, d), (B, 30),
         _terms(win, config, whiten0))
-    H = J.T @ J
-    b = J.T @ r0
+    Jt = J.mT
+    H = Jt @ J
+    b = _mv(Jt, r0)
 
     eye15 = torch.eye(15, dtype=dtype, device=dev)
-    Hmm = H[:15, :15] + 1e-8 * eye15
-    Hmk = H[:15, 15:]
-    Hkk = H[15:, 15:]
-    Hmm_inv = torch.linalg.inv_ex(0.5 * (Hmm + Hmm.T))[0]
-    H_new = Hkk - Hmk.T @ (Hmm_inv @ Hmk)
-    b_new = b[15:] - Hmk.T @ (Hmm_inv @ b[:15])
+    Hmm = H[:, :15, :15] + 1e-8 * eye15
+    Hmk = H[:, :15, 15:]
+    Hkk = H[:, 15:, 15:]
+    Hmm_inv = torch.linalg.inv_ex(0.5 * (Hmm + Hmm.mT))[0]
+    H_new = Hkk - Hmk.mT @ (Hmm_inv @ Hmk)
+    b_new = b[:, 15:] - _mv(Hmk.mT, _mv(Hmm_inv, b[:, :15]))
 
     # Eigendecomposition-regularised square root (``:940-978``)
-    evals, evecs = torch.linalg.eigh(0.5 * (H_new + H_new.T))
+    evals, evecs = torch.linalg.eigh(0.5 * (H_new + H_new.mT))
     evals_c = torch.clamp(evals, min=0.0)
-    sqrt_info = (evecs * torch.sqrt(evals_c)[None, :]) @ evecs.T
+    sqrt_info = (evecs * torch.sqrt(evals_c)[:, None, :]) @ evecs.mT
     # r0 such that sqrt_info dx + r0 reproduces the gradient
     inv_sqrt = (evecs * torch.where(
         evals_c > 1e-8, 1.0 / torch.sqrt(torch.clamp(evals_c, min=1e-8)),
-        torch.zeros_like(evals_c))[None, :]) @ evecs.T
-    r0_new = inv_sqrt @ b_new
+        torch.zeros_like(evals_c))[:, None, :]) @ evecs.mT
+    r0_new = _mv(inv_sqrt, b_new)
 
     ident = eye15[0, :4]
     states = NavState(*(_shift(x) for x in win.states))
@@ -537,19 +609,20 @@ def _marginalize_oldest(win: SlidingWindow, config: WindowConfig):
         pair_dt=_shift(win.pair_dt), pair_valid=_shift(win.pair_valid),
         lin_ba=_shift(win.lin_ba), lin_bg=_shift(win.lin_bg),
         prior_sqrt_info=sqrt_info, prior_r0=r0_new,
-        prior_state=_state_at(win.states, 1),
+        prior_state=_slot(win.states, 1),
         prior_valid=torch.ones_like(win.prior_valid))
 
 
 def _put(buf, i: int, value):
-    """A copy of ``buf`` with row ``i`` set to ``value``: a tensor is
-    copied, a Python number filled in on the device (assigned by index it
-    would be a blocking copy from the host)."""
+    """A copy of the lane buffer ``buf`` [B, K, ...] with slot ``i`` set to
+    ``value``: a tensor [B, ...] is copied, a Python number filled in on
+    the device (assigned by index it would be a blocking copy from the
+    host)."""
     out = buf.clone()
     if isinstance(value, torch.Tensor):
-        out[i] = value
+        out[:, i] = value
     else:
-        out[i].fill_(value)
+        out[:, i].fill_(value)
     return out
 
 
@@ -565,22 +638,36 @@ def window_push(win: SlidingWindow, state_guess: NavState, timestamp,
     (unused for the first keyframe). ``count`` is the caller's host copy
     of ``win.count``; without it the count is read from the device (one
     synchronisation). The window's count afterwards is ``min(count, K -
-    1) + 1``."""
+    1) + 1``. On a lane window every tensor argument carries the lane axis
+    (a Python number stands for every lane) and the lanes share ``count``.
+    """
     K = config.window_size
+    B = _lanes_of(win)
+    if B is None:
+        def lane(x):
+            return _as_lane(x) if isinstance(x, (torch.Tensor, tuple)) else x
+
+        return _one_lane(window_push(
+            _as_lane(win), lane(state_guess), lane(timestamp), lane(meas_p),
+            lane(meas_valid), lane(preint), lane(pair_dt), config,
+            meas_v=lane(meas_v), meas_v_valid=lane(meas_v_valid),
+            meas_q=lane(meas_q), meas_q_valid=lane(meas_q_valid),
+            mean_acc=lane(mean_acc), acc_valid=lane(acc_valid),
+            count=int(win.count) if count is None else count))
     dtype, dev = win.meas_p.dtype, win.meas_p.device
     if count is None:
-        count = int(win.count)
+        count = int(win.count[0])
     if meas_v is None:
-        meas_v = torch.zeros(3, dtype=dtype, device=dev)
+        meas_v = torch.zeros((B, 3), dtype=dtype, device=dev)
     if meas_q is None:
-        meas_q = _ident(1, dtype, dev)[0]
+        meas_q = _ident(B, dtype, dev)
     if mean_acc is None:
-        mean_acc = torch.zeros(3, dtype=dtype, device=dev)
+        mean_acc = torch.zeros((B, 3), dtype=dtype, device=dev)
     if count >= K:
         win = _marginalize_oldest(win, config)
         count -= 1
     i, j = count, max(count - 1, 0)  # insertion slot, its pair's slot
-    prev = _state_at(win.states, j)
+    prev = _slot(win.states, j)
     return win._replace(
         states=NavState(*(_put(b, i, v)
                           for b, v in zip(win.states, state_guess))),

@@ -16,7 +16,9 @@ mirrored on the host; its ``lax.cond`` between the chunk and the gap fill
 integrates both as one batch of two and selects with ``torch.where``. A
 run makes no host synchronisation apart from ``eigh``'s one a
 marginalisation (``estimators/window``) and, on a resume, one read of the
-restored window's count.
+restored window's count. JAX's ``vmap`` over logs is a lane axis:
+``batch_fusion_lanes`` runs B logs in lockstep, and ``batch_fusion`` is it
+on one lane.
 """
 
 from __future__ import annotations
@@ -56,17 +58,23 @@ class BatchFusionOutput(NamedTuple):
     kf_bg: torch.Tensor  # [M, 3]
     reset: torch.Tensor  # [M] bool (divergence reset fired)
     win: window.SlidingWindow  # final window
+    # (``batch_fusion_lanes``: a leading lane axis B on every leaf)
+
+
+def _lane_where(cond, a, b):
+    """``torch.where`` of a lane condition [B] over lane tensors [B, ...]."""
+    return torch.where(cond.view((-1,) + (1,) * (a.dim() - 1)), a, b)
 
 
 def _propagate(state: NavState, pre: Preintegrated, dt, gravity_w):
     """The next keyframe's state from a preintegrated chunk
     (``propagateState``, ``:4876``); the deltas exclude gravity."""
     R = se3.quat_to_rot(state.q)
-    p = state.p + state.v * dt + _mv(R, pre.delta_p)
+    p = state.p + state.v * dt[..., None] + _mv(R, pre.delta_p)
     v = state.v + _mv(R, pre.delta_v)
     q = se3.quat_multiply(state.q, pre.delta_q)
-    return NavState(p=p, q=q / torch.linalg.norm(q), v=v, ba=state.ba,
-                    bg=state.bg)
+    return NavState(p=p, q=q / torch.linalg.norm(q, dim=-1, keepdim=True),
+                    v=v, ba=state.ba, bg=state.bg)
 
 
 def _gravity(dtype, device):
@@ -90,106 +98,150 @@ def batch_fusion(imu_acc, imu_gyro, imu_dt, imu_valid,
     chunks' mean accelerometer sample (by default the masked mean of each
     chunk's valid samples). Returns each measurement's optimised newest
     state. ``init_window``/``init_state``/``initialized`` resume a run
-    from a checkpointed window and its last state.
+    from a checkpointed window and its last state. This is
+    ``batch_fusion_lanes`` on one lane.
     """
-    M, R = imu_acc.shape[:2]
+    def lane(x):
+        if x is None or isinstance(x, bool):
+            return x
+        return window._as_lane(x)
+
+    out = batch_fusion_lanes(
+        *(lane(a) for a in (imu_acc, imu_gyro, imu_dt, imu_valid, meas_t,
+                            meas_p, meas_p_valid)),
+        meas_v=lane(meas_v), meas_v_valid=lane(meas_v_valid),
+        meas_q=lane(meas_q), meas_q_valid=lane(meas_q_valid),
+        mean_acc=lane(mean_acc), config=config,
+        init_window=lane(init_window), init_state=lane(init_state),
+        initialized=lane(initialized))
+    return window._one_lane(out)
+
+
+def batch_fusion_lanes(imu_acc, imu_gyro, imu_dt, imu_valid,
+                       meas_t, meas_p, meas_p_valid,
+                       meas_v=None, meas_v_valid=None,
+                       meas_q=None, meas_q_valid=None,
+                       mean_acc=None,
+                       config: BatchFusionConfig = BatchFusionConfig(),
+                       init_window: window.SlidingWindow | None = None,
+                       init_state: NavState | None = None,
+                       initialized=False) -> BatchFusionOutput:
+    """``batch_fusion`` over B independent logs in lockstep (JAX's ``vmap``
+    of it): every input with a leading lane axis (``imu_acc [B, M, R, 3]``,
+    ``meas_p_valid [B, M]``, ...), a lane window (``window_init(...,
+    lanes=B)``) and lane state to resume from, ``initialized`` a bool or
+    [B]. Each lane's reset, divergence and gap fill are its own
+    ``torch.where``; every keyframe pushes into all lanes' windows at once
+    (one host count) and optimises them in one batch, and a
+    marginalisation makes one host synchronisation for all lanes. Returns
+    a BatchFusionOutput with a leading B."""
+    B, M, R = imu_acc.shape[:3]
     dtype, dev = imu_acc.dtype, imu_acc.device
     cfg_w = config.window
     K = cfg_w.window_size
     gw = _gravity(dtype, dev)
 
     if meas_v is None:
-        meas_v = torch.zeros((M, 3), dtype=dtype, device=dev)
+        meas_v = torch.zeros((B, M, 3), dtype=dtype, device=dev)
     if meas_v_valid is None:
-        meas_v_valid = torch.zeros(M, dtype=torch.bool, device=dev)
+        meas_v_valid = torch.zeros((B, M), dtype=torch.bool, device=dev)
     if meas_q is None:
-        meas_q = window._ident(M, dtype, dev)
+        meas_q = window._ident(B * M, dtype, dev).view(B, M, 4)
     if meas_q_valid is None:
-        meas_q_valid = torch.zeros(M, dtype=torch.bool, device=dev)
+        meas_q_valid = torch.zeros((B, M), dtype=torch.bool, device=dev)
     if mean_acc is None:
         # Masked mean of each chunk's valid samples (the reference's
         # GravityAlignmentFactor averages, ``:296-334,4510-4536``).
         wv = imu_valid.to(dtype)[..., None]
-        mean_acc = (imu_acc * wv).sum(1) / torch.clamp(wv.sum(1), min=1.0)
-    acc_valid = imu_valid.sum(1) > 0
+        mean_acc = (imu_acc * wv).sum(2) / torch.clamp(wv.sum(2), min=1.0)
+    acc_valid = imu_valid.sum(2) > 0
 
     if init_window is None:
-        win, count = window.window_init(cfg_w, dtype, dev), 0
+        win, count = window.window_init(cfg_w, dtype, dev, lanes=B), 0
     else:
-        win, count = init_window, int(init_window.count)
+        # The lanes share one count: one read of it (one host sync).
+        lo, hi = torch.stack([init_window.count.min(),
+                              init_window.count.max()]).tolist()
+        if lo != hi:
+            raise ValueError(f"lane windows hold {lo} to {hi} keyframes; "
+                             "lanes push together and must hold as many")
+        win, count = init_window, lo
     if init_state is None:
-        z = torch.zeros(3, dtype=dtype, device=dev)
-        init_state = NavState(p=z, q=window._ident(1, dtype, dev)[0], v=z,
+        z = torch.zeros((B, 3), dtype=dtype, device=dev)
+        init_state = NavState(p=z, q=window._ident(B, dtype, dev), v=z,
                               ba=z, bg=z)
     cur = init_state
     if isinstance(initialized, torch.Tensor):
-        init_flag = initialized.to(device=dev, dtype=torch.bool)
+        init_flag = initialized.to(device=dev, dtype=torch.bool).expand(B)
     else:
-        init_flag = torch.full((), bool(initialized), dtype=torch.bool,
+        init_flag = torch.full((B,), bool(initialized), dtype=torch.bool,
                                device=dev)
-    all_valid = torch.ones(R, dtype=torch.bool, device=dev)
+    all_valid = torch.ones((B, R), dtype=torch.bool, device=dev)
     zero3 = torch.zeros(3, dtype=dtype, device=dev)
 
     outs = []
     for m in range(M):
-        vld, dts = imu_valid[m], imu_dt[m]
-        p_m, p_ok = meas_p[m], meas_p_valid[m]
-        dt_total = torch.where(vld, dts, torch.zeros_like(dts)).sum()
+        vld, dts = imu_valid[:, m], imu_dt[:, m]
+        p_m, p_ok = meas_p[:, m], meas_p_valid[:, m]
+        dt_total = torch.where(vld, dts, torch.zeros_like(dts)).sum(-1)
 
         # The chunk with the current bias estimate and start-frame gravity,
         # and beside it the gap fill: constant motion from the current
         # state (``:3646-3781``); a chunk without valid samples takes the
-        # fill.
+        # fill. Both integrate as one batch [B, 2].
         R_T = se3.quat_to_rot(se3.quat_conjugate(cur.q))
         s_acc, s_gyro, s_dts = preintegration.synthesize_imu_gap(
             cur.q, cur.v, cur.q, cur.v, torch.clamp(dt_total, min=0.05),
             n_samples=R, gravity_world=gw)
         both = preintegration.preintegrate(
-            torch.stack([imu_acc[m], s_acc]),
-            torch.stack([imu_gyro[m], s_gyro]), torch.stack([dts, s_dts]),
-            cur.ba, cur.bg, gravity_sensor=_mv(R_T, gw),
-            params=config.preint, valid=torch.stack([vld, all_valid]))
-        real = vld.any()
-        pre = Preintegrated(*(torch.where(real, x[0], x[1]) for x in both))
+            torch.stack([imu_acc[:, m], s_acc], 1),
+            torch.stack([imu_gyro[:, m], s_gyro], 1),
+            torch.stack([dts, s_dts], 1), cur.ba[:, None], cur.bg[:, None],
+            gravity_sensor=_mv(R_T, gw)[:, None], params=config.preint,
+            valid=torch.stack([vld, all_valid], 1))
+        real = vld.any(-1)
+        pre = Preintegrated(*(_lane_where(real, x[:, 0], x[:, 1])
+                              for x in both))
 
         guess = _propagate(cur, pre, dt_total, gw)
 
         # Initialisation / divergence reset with the blended position
         first_fix = p_ok & ~init_flag
         diverged = p_ok & init_flag & (
-            torch.linalg.norm(guess.p - p_m) > config.max_position_error)
+            torch.linalg.norm(guess.p - p_m, dim=-1)
+            > config.max_position_error)
         reset = first_fix | diverged
-        diff = torch.linalg.norm(p_m - guess.p)
+        diff = torch.linalg.norm(p_m - guess.p, dim=-1)
         blend = torch.where(diff > config.large_jump,
                             torch.full_like(diff, 0.5),
-                            torch.full_like(diff, config.init_blend))
-        q_ok, v_ok = meas_q_valid[m], meas_v_valid[m]
-        init_q = (torch.where(q_ok, meas_q[m], guess.q)
+                            torch.full_like(diff, config.init_blend))[:, None]
+        q_ok, v_ok = meas_q_valid[:, m], meas_v_valid[:, m]
+        init_q = (_lane_where(q_ok, meas_q[:, m], guess.q)
                   if config.use_orientation_as_initial else guess.q)
         guess = NavState(
-            p=torch.where(reset, guess.p * (1.0 - blend) + p_m * blend,
+            p=_lane_where(reset, guess.p * (1.0 - blend) + p_m * blend,
                           guess.p),
-            q=torch.where(first_fix, init_q, guess.q),
-            v=torch.where(reset, torch.where(v_ok, meas_v[m], zero3),
-                          guess.v),
-            ba=torch.where(reset, zero3, guess.ba),
-            bg=torch.where(reset, zero3, guess.bg))
+            q=_lane_where(first_fix, init_q, guess.q),
+            v=_lane_where(reset, _lane_where(v_ok, meas_v[:, m],
+                                             zero3.expand(B, 3)), guess.v),
+            ba=_lane_where(reset, zero3.expand(B, 3), guess.ba),
+            bg=_lane_where(reset, zero3.expand(B, 3), guess.bg))
         # A reset drops the prior: it summarises a history no longer
         # trusted (``resetStateToUwb/Gps``).
         win = win._replace(prior_valid=win.prior_valid & ~diverged)
 
         win = window.window_push(
-            win, guess, meas_t[m], p_m, p_ok, pre, dt_total, cfg_w,
-            meas_v=meas_v[m], meas_v_valid=v_ok, meas_q=meas_q[m],
-            meas_q_valid=q_ok, mean_acc=mean_acc[m],
-            acc_valid=acc_valid[m], count=count)
+            win, guess, meas_t[:, m], p_m, p_ok, pre, dt_total, cfg_w,
+            meas_v=meas_v[:, m], meas_v_valid=v_ok, meas_q=meas_q[:, m],
+            meas_q_valid=q_ok, mean_acc=mean_acc[:, m],
+            acc_valid=acc_valid[:, m], count=count)
         count = min(count, K - 1) + 1
         win = window.window_optimize(win, cfg_w)
 
-        cur = window._state_at(win.states, count - 1)
+        cur = window._slot(win.states, count - 1)
         outs.append((*cur, diverged))
         init_flag = init_flag | p_ok
-    kf = [torch.stack(x) for x in zip(*outs)]
+    kf = [torch.stack(x, 1) for x in zip(*outs)]
     return BatchFusionOutput(*kf, win=win)
 
 

@@ -708,6 +708,14 @@ def ndt_align(ndt_map: NDTMap, source: PointCloud, guess=None,
     ev = _Evaluator(ndt_map, source.xyzi[:, :3], source.mask,
                     config.resolution, _OFFSETS[config.search_method], d1,
                     d2)
+    return align_with(ev, guess, config)
+
+
+def align_with(ev, guess, config: NDTConfig) -> NDTResult:
+    """``ndt_align``'s host loop and result over an evaluator: anything
+    with ``dtype``, ``params(p)``, ``gather(params)``, ``derivs(p,
+    stats)``, ``n_src`` and ``syncs`` as ``_Evaluator`` has them
+    (``parallel/batch.sharded_align`` passes one over point shards)."""
     steps = _align_steps(_guess_pose6(guess, ev.dtype), config)
     stats = reply = None
     try:

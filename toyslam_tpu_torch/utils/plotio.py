@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from toyslam_tpu_torch.core.se3 import rot_mat_2d
+
 
 def covariance_ellipse_2d(cov, chi2: float = 3.0):
     """Ellipse parameters of a 2x2 covariance (``plot_covariance_ellipse``,
@@ -36,9 +38,7 @@ def ellipse_polyline(x, y, a, b, angle, step: float = 0.1):
     (``plot_ellipse``, ``:44-75``). Returns [N, 2]."""
     t = np.arange(0.0, 2.0 * np.pi + step, step)
     p = np.stack([a * np.cos(t), b * np.sin(t)])
-    c, s = np.cos(angle), np.sin(angle)
-    R = np.array([[c, -s], [s, c]])
-    xy = R @ p
+    xy = rot_mat_2d(angle) @ p
     return np.stack([xy[0] + x, xy[1] + y], axis=1)
 
 
