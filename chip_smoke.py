@@ -54,10 +54,18 @@ just after:
   ``--write-bag`` and then ``--bag``;
 - the rest of ``parallel/batch`` (phase 29; K1-K3 on point shards):
   ``sharded_batch_fusion`` over smoother-fleet-64 (64 of the benchmark's
-  smoother logs of 32 keyframes) in f64 and f32 at chunks 64 and 16,
+  smoother logs of 32 keyframes) in f64 and f32 at chunk 64, and in f32
+  at chunk 16 over the first 32 logs (two chunks in turn),
   ``sharded_align`` of the align-65k pair over ``[cuda:0] x 1, 2, 4`` in
   exact and frozen mode, and the same align split between two processes
   joined by ``initialize_multihost`` over Gloo.
+
+Phase 2 also checks the single-cloud API (``api_check``):
+``core/pointcloud.voxel_ids`` and ``unique_voxel_slots`` on the first
+odometry scan at the 0.3 m leaf, int for int against the same calls on
+the CPU and with as many voxels as that scan's downsample, ``ops/eigh3.
+eigh3`` on the covariances of that scan's map against a host f64 run,
+and ``runtime/native.available()``.
 
 It checks that every align converged and improved on its identity guess
 against the generated ground truth, that the card's exact NDT align lands
@@ -192,6 +200,12 @@ TERMS_RTOL = 1e-4  # K1/K3/K6 sums vs plain, relative to the group's largest
 # pair's terms dropped from 24576 would read ~4e-5.
 TERMS_MAG_RTOL = 2e-6
 PAIRS_TOL_M, PAIRS_TOL_RAD = 1e-3, 1e-4  # kernel vs plain odometry poses
+# eigh3 in f32 on the card against f64 on the host, on the same f32
+# covariances: eigenvalues and the reconstruction V diag(w) V^T relative
+# to each matrix's largest eigenvalue (a few f32 ulps through 5 sweeps),
+# and the angle of each eigenvector whose eigenvalue lies at least
+# EIGH3_GAP of the largest from the others (f32 rounding over the gap).
+EIGH3_RTOL, EIGH3_GAP, EIGH3_ANGLE = 1e-5, 0.1, 1e-4
 # The card's f32 exact align vs the port's f64 align on the CPU (JAX and
 # the port agree to 3.5e-5 m in f32 on this pair).
 ALIGN64_TOL_M, ALIGN64_TOL_RAD = 1e-3, 1e-3
@@ -345,7 +359,8 @@ STAGE_SPIN_MS = 50.0
 # bench.py:284-314's generator (numpy seeds 2-65; seed 2 is bench's own
 # generator) of 32 keyframes of 20 IMU samples, BatchFusionConfig()
 # (window 20: 12 marginalisations), through sharded_batch_fusion on the
-# card in f64 (chunk 64) and f32 (chunks 64 and 16); lanes 0-3 in f64
+# card in f64 (chunk 64) and f32 (chunk 64, and chunk 16 over the first
+# FLEET_CHUNK16_LOGS); lanes 0-3 in f64
 # against the single-log batch_fusion on the card, the f32 lanes against
 # the f64 lanes within twice the JAX package's own f32 drift (phase 26's
 # JAX_DRIFT_*). sharded-align: the align-65k pair (phase 3) over meshes
@@ -355,6 +370,12 @@ STAGE_SPIN_MS = 50.0
 # cuda:0 joined by initialize_multihost (Gloo) split the pair.
 FLEET_LOGS, FLEET_KF = 64, 32
 FLEET_SEED0 = 2
+# The f32 chunk-16 run covers the first 32 logs, two chunks in turn joined
+# by fusion.cat_lanes, against the same lanes of the chunk-64 run: a cut in
+# depth for time (all 64 logs, four chunks, took 45.7-51.6 s of a script
+# that ran 1067.5 s on a slower host, NVIDIA H100 80GB HBM3, 700 W; each
+# chunk takes about as long at 16 lanes as at 64).
+FLEET_CHUNK16_LOGS = 32
 FLEET_CHECKED_LANES = 4
 FLEET_PROFILE_KF = 1
 # Lanes 0-3 in f64 against the single-log runs on the card, in m: about
@@ -697,6 +718,8 @@ def mapping_path(scans, scan_mask, xyzi, mask, cfg, odo_out, a_xyzi,
     """Phases 12-18: the mapping slice on the card. Returns the kernels'
     launch counts of the mapping run, phase 17's reader, and phase 18's
     batch files (trajectory.txt, solution.csv, map.pcd bytes)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
 
     from toyslam_tpu_torch.core import pcd_io, pointcloud
@@ -957,8 +980,8 @@ def mapping_path(scans, scan_mask, xyzi, mask, cfg, odo_out, a_xyzi,
               f"at scan {int(e256.argmax())}, per scan "
               f"{np.round(e256, 5).tolist()}")
 
-    # 18. The app end to end: 6 scans as PCDs, batch, stream with
-    #     checkpoints, resume.
+    # 18. The app end to end: 6 scans as PCDs, batch and stream with
+    #     checkpoints (two processes at once), resume.
     tmp = tempfile.TemporaryDirectory()
     root = Path(tmp.name)
     (root / "scans").mkdir()
@@ -966,9 +989,11 @@ def mapping_path(scans, scan_mask, xyzi, mask, cfg, odo_out, a_xyzi,
         pcd_io.write_pcd(root / "scans" / f"cloud_{k}.pcd", xyzi[k][mask[k]])
     common = ("--capacity", xyzi.shape[1])
     t0 = time.perf_counter()
-    outs = {"batch": run_app(root / "scans", root / "batch", *common),
-            "stream": run_app(root / "scans", root / "stream", *common,
-                              "--stream", "--checkpoint-every", 2)}
+    with ThreadPoolExecutor(2) as ex:
+        batch = ex.submit(run_app, root / "scans", root / "batch", *common)
+        stream = ex.submit(run_app, root / "scans", root / "stream", *common,
+                           "--stream", "--checkpoint-every", 2)
+        outs = {"batch": batch.result(), "stream": stream.result()}
     (root / "resume").mkdir()
     (root / "resume" / "mapping_state.npz").write_bytes(
         (root / "stream" / "mapping_state.npz").read_bytes())
@@ -982,7 +1007,7 @@ def mapping_path(scans, scan_mask, xyzi, mask, cfg, odo_out, a_xyzi,
     n_map = {name: len(pcd_io.read_pcd(root / name / "map.pcd"))
              for name in outs}
     print(f"phase 18 mapping_demo on {APP_SCANS} scans ({app_s:.1f} s for "
-          f"three processes): map points printed "
+          f"three processes, the first two at once): map points printed "
           f"{ {k: v[1] for k, v in outs.items()} }, read back {n_map}; "
           f"stream and resume files equal to batch: "
           f"{files['stream'] == files['batch']}, "
@@ -3059,9 +3084,11 @@ def smoother_fleet_phase(dev):
     n_marg = FLEET_KF - K
     mesh = [dev]
     runs, stats = {}, {}
-    for dtype, chunk in ((torch.float64, 64), (torch.float32, 64),
-                         (torch.float32, 16)):
+    for dtype, chunk, n_logs in ((torch.float64, 64, FLEET_LOGS),
+                                 (torch.float32, 64, FLEET_LOGS),
+                                 (torch.float32, 16, FLEET_CHUNK16_LOGS)):
         args, logs = fleet_smoother_args(dtype, dev)
+        args = [a[:n_logs] for a in args]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out, syncs = count_syncs(lambda: batch.sharded_batch_fusion(
@@ -3074,16 +3101,16 @@ def smoother_fleet_phase(dev):
         other = sum(v for k, v in syncs.items()
                     if "estimators/window" not in k)
         stats[name] = {"seconds": sec,
-                       "keyframes_per_s": FLEET_LOGS * FLEET_KF / sec,
+                       "keyframes_per_s": n_logs * FLEET_KF / sec,
                        "syncs": eigh + other}
-        print(f"phase 29 smoother-fleet-64 {name}: {FLEET_LOGS} logs x "
+        print(f"phase 29 smoother-fleet-64 {name}: {n_logs} logs x "
               f"{FLEET_KF} keyframes, window {K}: {sec:.2f} s, "
-              f"{FLEET_LOGS * FLEET_KF / sec:.1f} keyframes/s aggregate "
+              f"{n_logs * FLEET_KF / sec:.1f} keyframes/s aggregate "
               f"({card}); synchronising calls by line: {syncs}")
         check(all(bool(torch.isfinite(t).all()) for t in out[:5]),
               f"smoother-fleet-64 {name}: an output is not finite")
         # eigh's one a marginalisation for all lanes of a chunk, nothing else
-        check(eigh == n_marg * -(-FLEET_LOGS // chunk) and other == 0,
+        check(eigh == n_marg * -(-n_logs // chunk) and other == 0,
               f"smoother-fleet-64 {name}: host syncs other than eigh's one "
               f"a marginalisation round")
     # Device operations a keyframe round: the f32 fleet resumed from its
@@ -3122,8 +3149,9 @@ def smoother_fleet_phase(dev):
     v64 = f64.kf_v.cpu().numpy()
     for name in ("float32 chunk 64", "float32 chunk 16"):
         o = runs[name]
-        dp = np.linalg.norm(o.kf_p.double().cpu().numpy() - p64, axis=-1)
-        dv = np.linalg.norm(o.kf_v.double().cpu().numpy() - v64, axis=-1)
+        n = len(o.kf_p)
+        dp = np.linalg.norm(o.kf_p.double().cpu().numpy() - p64[:n], axis=-1)
+        dv = np.linalg.norm(o.kf_v.double().cpu().numpy() - v64[:n], axis=-1)
         print(f"  {name} against the f64 lanes: position max "
               f"{dp.max():.4f} m, velocity median {np.median(dv):.4f} m/s "
               f"(bounds {2 * JAX_DRIFT_POS_M:.3f} m, "
@@ -3133,10 +3161,12 @@ def smoother_fleet_phase(dev):
               f"smoother-fleet-64 {name}: f32 drifts from f64 more than "
               f"twice as far as the JAX package's")
     a, b = runs["float32 chunk 64"], runs["float32 chunk 16"]
-    same = all(torch.equal(x, y) for x, y in zip(a[:6], b[:6]))
-    chunk_dp = float((a.kf_p - b.kf_p).abs().max())
-    print(f"  chunk 16 against chunk 64 (f32): bit-identical {same}, "
-          f"position max {chunk_dp:.3g} m")
+    same = all(torch.equal(x[:FLEET_CHUNK16_LOGS], y)
+               for x, y in zip(a[:6], b[:6]))
+    chunk_dp = float((a.kf_p[:FLEET_CHUNK16_LOGS] - b.kf_p).abs().max())
+    print(f"  chunk 16 against chunk 64 (f32) over lanes 0-"
+          f"{FLEET_CHUNK16_LOGS - 1}: bit-identical {same}, position max "
+          f"{chunk_dp:.3g} m")
     return {"runs": stats, "device_ops_per_round": ops / FLEET_PROFILE_KF,
             "lane_f64_m": max(dev_p), "single_log_s": single_s}
 
@@ -3305,6 +3335,65 @@ def sharded_align_phase(dev, amap, src):
     return out, launched
 
 
+def api_check(scan, scan_mask, leaf, n_voxels, ndt_map, card):
+    """Phase 2's check of the single-cloud API on the card: ``voxel_ids``
+    and ``unique_voxel_slots`` of one scan int for int against the CPU,
+    ``eigh3`` of its map's covariances against a host f64 run, and
+    ``native.available()``."""
+    import torch
+
+    from toyslam_tpu_torch.core import pointcloud
+    from toyslam_tpu_torch.ops.eigh3 import eigh3
+    from toyslam_tpu_torch.runtime import native
+
+    t0 = time.perf_counter()
+    got = pointcloud.voxel_ids(pointcloud.PointCloud(scan, scan_mask), leaf)
+    got += pointcloud.unique_voxel_slots(got[0])
+    want = pointcloud.voxel_ids(pointcloud.PointCloud(scan.cpu(),
+                                                      scan_mask.cpu()), leaf)
+    want += pointcloud.unique_voxel_slots(want[0])
+    for name, g, w in zip(("vid", "min_b", "div_mul", "unique_ids", "slot",
+                           "n_unique"), got, want):
+        check(g.is_cuda and g.dtype == torch.int32 and torch.equal(g.cpu(), w),
+              f"{name} on the card differs from the CPU")
+    check(int(got[5]) == n_voxels, f"{int(got[5])} voxels, the downsample "
+                                   f"has {n_voxels}")
+
+    # The map's covariances: the inverses of its valid voxels' icov rows.
+    icov = ndt_map.icov6[:, ndt_map.valid].double().cpu().numpy()
+    i3 = icov[[0, 1, 2, 1, 3, 4, 2, 4, 5]].T.reshape(-1, 3, 3)
+    cov = np.linalg.inv(i3).astype(np.float32)
+    w, v = (a.cpu().double().numpy()
+            for a in eigh3(torch.from_numpy(cov).to(scan.device)))
+    w64, v64 = (a.numpy() for a in eigh3(torch.from_numpy(cov).double()))
+    top = np.abs(w64).max(1)
+    ev_err = float((np.abs(w - w64).max(1) / top).max())
+    recon = v @ (w[:, :, None] * np.swapaxes(v, 1, 2))
+    rec_err = float((np.abs(recon - cov).max((1, 2)) / top).max())
+    gap = np.stack([np.minimum(np.abs(w64[:, j] - w64[:, k]),
+                               np.abs(w64[:, j] - w64[:, 3 - j - k]))
+                    for j, k in ((0, 1), (1, 0), (2, 0))], 1) / top[:, None]
+    # Sine of each eigenvector's angle to its f64 counterpart (an arccos
+    # of the cosine would read the f32 vector's norm as an angle).
+    vc, vc64 = np.swapaxes(v, 1, 2), np.swapaxes(v64, 1, 2)
+    sines = (np.linalg.norm(np.cross(vc, vc64), axis=-1)
+             / np.linalg.norm(vc, axis=-1))[gap >= EIGH3_GAP]
+    angle = float(sines.max())
+    check(ev_err <= EIGH3_RTOL and rec_err <= EIGH3_RTOL
+          and angle <= EIGH3_ANGLE,
+          f"eigh3 on the card vs f64: eigenvalues {ev_err:.3g}, "
+          f"reconstruction {rec_err:.3g}, angle {angle:.3g} rad")
+    check(native.available(), "native.available() is False")
+    print(f"phase 2 API check: voxel_ids + unique_voxel_slots of scan 0 "
+          f"({scan.shape[0]} points, {leaf} m) on the card: {int(got[5])} "
+          f"voxels, every output int for int with the CPU; eigh3 of the "
+          f"map's {len(cov)} covariances in f32 vs f64 on the host: "
+          f"eigenvalues {ev_err:.3g} and V diag(w) V^T {rec_err:.3g} of the "
+          f"largest eigenvalue, eigenvector angle {angle:.3g} rad over "
+          f"{sines.size} gapped ones; native.available() True; "
+          f"{time.perf_counter() - t0:.2f} s ({card})")
+
+
 def main() -> int:
     import torch
 
@@ -3386,6 +3475,7 @@ def main() -> int:
         cfg.work_capacity, with_intensity=False)
     m = ndt.build_ndt_map(pointcloud.pad_to(ds[0], cfg.work_capacity),
                           cfg.ndt)
+    api_check(scans[0], scan_mask[0], cfg.scan_leaf, counts[0], m, card)
     d1, d2, _ = ndt.gauss_coefficients(cfg.ndt.resolution,
                                        cfg.ndt.outlier_ratio)
     ev = ndt._Evaluator(m, src.xyzi[:, :3], src.mask, cfg.ndt.resolution,

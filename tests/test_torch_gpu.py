@@ -207,19 +207,13 @@ def test_ndt_sums_over_several_waves_on_card(cuda, ndt_scene):
 
 
 def test_ndt_sums_one_device_operation_a_call(cuda, ndt_scene):
-    from torch.profiler import ProfilerActivity, profile
-
+    """K1 and K3 are one device operation a call each (the warm-up call of
+    ``_one_device_operation`` makes the stream's counter)."""
     k1_args, k3_args = _ndt_case(ndt_scene, "DIRECT7")
-    for fn, args in ((ndt_kernels.ndt_terms_gathered, k1_args),
-                     (ndt_kernels.ndt_terms_packed, k3_args)):
-        fn(*args)  # the stream's counter is made (zeroed) at the first call
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn(*args)
-            torch.cuda.synchronize()
-        ops = [(e.key, e.count) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        assert sum(c for _, c in ops) == 1, ops
+    _one_device_operation(lambda: ndt_kernels.ndt_terms_gathered(*k1_args),
+                          "terms_gathered_kernel")
+    _one_device_operation(lambda: ndt_kernels.ndt_terms_packed(*k3_args),
+                          "terms_packed_kernel")
 
 
 
@@ -661,7 +655,8 @@ def test_lane_row_sum_matches_plain_on_card(cuda):
 def _one_device_operation(fn, kernel, calls=20):
     """fn() is one device operation, the kernel named ``kernel``: ``calls``
     calls under torch.profiler are ``calls`` launches of it and nothing
-    else (``gicp_call_ops.profiled`` primes the session)."""
+    else (``gicp_call_ops.profiled`` primes the session and lets its last
+    records arrive before it stops)."""
     prof = gicp_call_ops.profiled(fn, calls)
     assert prof["ops"] == calls, prof["by_name"]
     assert all(kernel in k for k in prof["by_name"]), prof["by_name"]

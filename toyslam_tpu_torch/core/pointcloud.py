@@ -125,6 +125,45 @@ def voxel_grid_lanes(x, y, z, mask, leaf_size: float):
                                             div)
 
 
+def div_mul_lanes(div):
+    """The linear id's strides ``[1, dx, dx*dy]`` of grids ``div [B, 3]``."""
+    return torch.stack([torch.ones_like(div[:, 0]), div[:, 0],
+                        div[:, 0] * div[:, 1]], -1)
+
+
+def voxel_ids(cloud: PointCloud, leaf_size: float):
+    """Per-point linear voxel id over the cloud's bounding grid (VoxelGrid's
+    ``i + j*dx + k*dx*dy``, ``voxel_grid_covariance_omp_impl.hpp:86-103``):
+    ``(vid [N], min_b [3], div_mul [3])``, int32, with ``div_mul = [1, dx,
+    dx*dy]``; invalid points get INT_MAX. The one-cloud form of
+    ``voxel_grid_lanes``."""
+    x, y, z, _ = cloud.xyzi.unbind(-1)
+    _, min_b, div, vid = voxel_grid_lanes(x[None], y[None], z[None],
+                                          cloud.mask[None], leaf_size)
+    return vid[0], min_b[0], div_mul_lanes(div)[0]
+
+
+def unique_voxel_slots(vid, out_capacity: int | None = None):
+    """Sorted distinct voxel ids and each point's slot among them, for ids
+    ``vid [N]`` int32 (INT_MAX: no voxel): ``(unique_ids [V] padded with
+    INT_MAX, slot [N], n_unique)``, int32, with ``V = out_capacity or N``.
+    Points of voxels beyond the capacity get ``slot == V``; invalid points
+    share the last slot before them. No host synchronisation."""
+    n = vid.shape[0]
+    V = n if out_capacity is None else out_capacity
+    sorted_vid, order = sort_lanes(vid[None])
+    first, pos, n_unique = run_bookkeeping_lanes(sorted_vid)
+    sorted_vid, order, first, pos = sorted_vid[0], order[0], first[0], pos[0]
+    # Each kept voxel's first point writes its id; the rest write to a
+    # dump slot V that is cut off.
+    dest = torch.where(first & (pos < V), pos, V)
+    unique_ids = torch.full((V + 1,), INT_MAX, dtype=torch.int32,
+                            device=vid.device).scatter_(0, dest, sorted_vid)
+    slot = torch.empty_like(vid).scatter_(0, order,
+                                          pos.clamp(0, V).to(torch.int32))
+    return unique_ids[:V], slot, n_unique[0].to(torch.int32)
+
+
 def voxel_downsample_lanes(xyzi, mask, leaf_size: float,
                            capacity: int | None = None,
                            with_intensity: bool = True) -> PointCloud:

@@ -151,12 +151,15 @@ def matrix_to_pose6(T):
     return torch.cat([T[..., :3, 3], rot_to_euler_xyz(T[..., :3, :3])], -1)
 
 
-def svd_solve(A, b):
+def svd_solve(A, b, rcond_factor=None):
     """Least-squares solve of ``A x = b`` through the SVD, with singular
-    values below ``eps * n * max_sv`` treated as zero (Eigen JacobiSVD-style
-    thresholding of the reference Newton step)."""
+    values below ``rcond_factor * max_sv`` treated as zero (Eigen
+    JacobiSVD-style thresholding of the reference Newton step);
+    ``rcond_factor`` defaults to ``eps * n``."""
     u, s, vt = torch.linalg.svd(A, full_matrices=False)
-    cutoff = torch.finfo(A.dtype).eps * A.shape[-1] * s.amax(-1, keepdim=True)
+    if rcond_factor is None:
+        rcond_factor = torch.finfo(A.dtype).eps * A.shape[-1]
+    cutoff = rcond_factor * s.amax(-1, keepdim=True)
     keep = s > cutoff
     s_inv = torch.where(keep, 1.0 / torch.where(keep, s, torch.ones_like(s)),
                         torch.zeros_like(s))

@@ -42,11 +42,13 @@ PRIMER = "spin_kernel"  # torch.cuda._sleep's kernel
 def profiled(fn, calls=1, sessions=3):
     """``calls`` calls of ``fn()`` under torch.profiler after a warm-up:
     {"ops", "device_ms", "by_name", "wall_ms"}, each over all the calls. A
-    profiler session on the card can miss its first device events, so each
-    session starts with a few spins of the card and a pause of the host,
-    which are left out of the result. A session that still reports no
-    device event of ``fn`` is run again, up to ``sessions`` in all; raises
-    if every one is empty."""
+    profiler session on the card can miss its first device events, and the
+    records of its last ones can still be on their way when it stops, so
+    each session starts with a few spins of the card and a pause of the
+    host, which are left out of the result, and ends with a pause after
+    the card is idle. A session that still reports no device event of
+    ``fn`` is run again, up to ``sessions`` in all; raises if every one is
+    empty."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -56,12 +58,13 @@ def profiled(fn, calls=1, sessions=3):
             for _ in range(4):
                 torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-            time.sleep(0.01)
+            time.sleep(0.05)
             t0 = time.perf_counter()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0)
+            time.sleep(0.05)
         rows = [(e.key, e.count, e.self_device_time_total)
                 for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA

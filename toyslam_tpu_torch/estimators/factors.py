@@ -29,6 +29,9 @@ from toyslam_tpu_torch.core import se3
 from toyslam_tpu_torch.estimators.preintegration import Preintegrated
 
 GRAVITY = 9.81  # world gravity is [0, 0, -GRAVITY]
+# The world gravity acceleration as a vector, f64 on the host: move it to
+# the data's device and dtype with ``GRAVITY_W.to(x)``.
+GRAVITY_W = torch.tensor([0.0, 0.0, -GRAVITY], dtype=torch.float64)
 
 
 class NavState(NamedTuple):

@@ -4,7 +4,8 @@
 Five branch-free sweeps over the (0,1), (0,2), (1,2) pairs on component
 tensors, then an ascending sort by a 3-element network. Kept as the JAX
 package's algorithm (not ``torch.linalg.eigh``) so that the NDT map's
-eigenvalue inflation sees the same eigenpairs.
+eigenvalue inflation sees the same eigenpairs. ``eigh3_soa`` takes the six
+components (the map build's layout); ``eigh3`` is its ``[..., 3, 3]`` form.
 """
 
 from __future__ import annotations
@@ -69,3 +70,13 @@ def eigh3_soa(a00, a01, a02, a11, a12, a22, sweeps: int = 5):
     cswap(1, 2)
     cswap(0, 1)
     return tuple(evals), tuple(V[i][j] for i in range(3) for j in range(3))
+
+
+def eigh3(A, sweeps: int = 5):
+    """Symmetric ``A [..., 3, 3]`` -> ``(evals [..., 3] ascending, evecs
+    [..., 3, 3])`` with the eigenvectors as columns, by ``eigh3_soa``."""
+    evals, evecs = eigh3_soa(A[..., 0, 0], A[..., 0, 1], A[..., 0, 2],
+                             A[..., 1, 1], A[..., 1, 2], A[..., 2, 2],
+                             sweeps=sweeps)
+    return (torch.stack(evals, -1),
+            torch.stack(evecs, -1).unflatten(-1, (3, 3)))

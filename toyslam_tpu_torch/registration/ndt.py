@@ -51,7 +51,8 @@ import numpy as np
 import torch
 
 from toyslam_tpu_torch.core import se3
-from toyslam_tpu_torch.core.pointcloud import PointCloud, voxel_grid_lanes
+from toyslam_tpu_torch.core.pointcloud import (PointCloud, div_mul_lanes,
+                                              voxel_grid_lanes)
 from toyslam_tpu_torch.ops import ndt_kernels, nn_kernels
 from toyslam_tpu_torch.ops.eigh3 import eigh3_soa
 from toyslam_tpu_torch.ops.segment import (INT_MAX, run_bookkeeping_lanes,
@@ -173,8 +174,7 @@ def build_ndt_map_lanes(targets: PointCloud, config: NDTConfig) -> NDTMap:
     px, py, pz, _ = targets.xyzi.unbind(-1)
     _, min_b, div, vid = voxel_grid_lanes(px, py, pz, targets.mask,
                                           config.resolution)
-    div_mul = torch.stack([torch.ones_like(div[:, 0]), div[:, 0],
-                           div[:, 0] * div[:, 1]], -1)
+    div_mul = div_mul_lanes(div)
 
     sorted_vid, order = sort_lanes(vid)
     sx, sy, sz = (c.reshape(-1)[order] for c in (px, py, pz))
@@ -496,15 +496,19 @@ def gather_neighborhood(ndt_map, src_xyz, src_mask, p, resolution,
 
 
 def compute_derivatives(ndt_map, src_xyz, src_mask, p, d1, d2, resolution,
-                        offsets, stats: NeighborhoodStats | None = None):
+                        offsets, stats: NeighborhoodStats | None = None, *,
+                        compute_hessian: bool = True):
     """Score, gradient [6] and Hessian [6, 6] of the NDT objective at pose6
     ``p`` (``computeDerivatives``, ``ndt_omp_impl.hpp:178-285``), as host
-    tensors. ``stats`` evaluates against a frozen neighbourhood."""
+    tensors. ``stats`` evaluates against a frozen neighbourhood. With
+    ``compute_hessian=False`` the Hessian is None; the same 28 sums are
+    computed either way."""
     ev = _Evaluator(ndt_map, src_xyz, src_mask, resolution, offsets, d1, d2)
     sums = ev.sums(ev.params(np.asarray(p, ev.np_dtype)),
-                   None if stats is None else stats.packed)
-    return tuple(torch.from_numpy(np.asarray(a))
-                 for a in _unpack(sums.cpu().numpy()))
+                   None if stats is None else stats.packed).cpu().numpy()
+    out = _unpack(sums) if compute_hessian else (sums[0], sums[1:7], None)
+    return tuple(None if a is None else torch.from_numpy(np.asarray(a))
+                 for a in out)
 
 
 # ----------------------------------------------------------------------------

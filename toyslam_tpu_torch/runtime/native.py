@@ -13,7 +13,9 @@ libraries. A failed build raises with the compiler's output, and every
 entry point here raises on bad input or a failed file: nothing falls back
 to Python. The pure-Python routes run only where a caller asks for them
 (``native=False`` in ``core/pcd_io``, ``runtime/loader`` and
-``runtime/rosbag``). ctypes releases the GIL during a call.
+``runtime/rosbag``); ``available`` reports whether the build succeeds, for
+a caller that wants to know without the exception. ctypes releases the GIL
+during a call.
 """
 
 from __future__ import annotations
@@ -118,6 +120,17 @@ def load() -> ctypes.CDLL:
                 fn.restype = ctypes.c_long
             _lib = lib
     return _lib
+
+
+def available() -> bool:
+    """True when the host library builds and loads here, False when it
+    does not. A query only: the entry points still build and raise on a
+    failed build, and no route is chosen from this answer."""
+    try:
+        load()
+    except (OSError, RuntimeError):
+        return False
+    return True
 
 
 def bz2_available() -> bool:
