@@ -352,15 +352,6 @@ def test_ndt_odometry_edge_needs_a_card():
         ndt_odometry_edge.main()
 
 
-def test_single_lane_stages_needs_a_card():
-    from toyslam_tpu_torch.diag import single_lane_stages
-
-    if torch.cuda.is_available():
-        pytest.skip("this machine has a card: the diagnostic runs there")
-    with pytest.raises(RuntimeError, match="needs a CUDA device"):
-        single_lane_stages.run()
-
-
 def test_magnitude_err_ignores_cancellation():
     """A sum whose terms cancel: one ulp of its largest term is a large
     error relative to the sum, a small one relative to the magnitudes."""

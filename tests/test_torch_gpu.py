@@ -75,6 +75,7 @@ from toyslam_tpu_torch.pipelines import odometry  # noqa: E402
 from toyslam_tpu_torch.registration import gicp, ndt  # noqa: E402
 from toyslam_tpu_torch.sim.urban_scans import spinning_lidar_scans  # noqa: E402
 from toyslam_tpu_torch.utils import checkpoint  # noqa: E402
+from toyslam_tpu_torch.utils.profiling import span  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -660,6 +661,44 @@ def _one_device_operation(fn, kernel, calls=20):
     prof = gicp_call_ops.profiled(fn, calls)
     assert prof["ops"] == calls, prof["by_name"]
     assert all(kernel in k for k in prof["by_name"]), prof["by_name"]
+
+
+def test_spans_share_the_cards_clock(cuda):
+    """A span around ``torch.cuda._sleep`` starts before its kernel and
+    ends, the launch made, within a few ms of the kernel's start; the
+    span is on the host's timeline only, never the device's. The session
+    is primed as ``gicp_call_ops.profiled`` primes its own."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        for _ in range(5):
+            with span("test.sleep"):
+                torch.cuda._sleep(1_000_000)
+            torch.cuda.synchronize()
+        time.sleep(0.05)
+    events = prof.events()
+    spans = sorted(e.time_range.start for e in events
+                   if e.name == "toyslam.test.sleep")
+    ends = sorted(e.time_range.end for e in events
+                  if e.name == "toyslam.test.sleep")
+    dev = torch.autograd.DeviceType.CUDA
+    assert not [e.name for e in events if e.device_type == dev
+                and e.name.startswith("toyslam.")]
+    kernels = sorted(e.time_range.start for e in events
+                     if e.device_type == dev and "spin_kernel" in e.name
+                     and e.time_range.start >= spans[0])
+    assert len(spans) == len(kernels) == 5
+    for start, end, k in zip(spans, ends, kernels):
+        assert start <= k  # microseconds, on one clock
+        assert abs(end - k) < 5000.0
 
 
 @pytest.mark.parametrize("n", [1, 255, 256, 257, 32768, 100003])

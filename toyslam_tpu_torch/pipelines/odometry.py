@@ -35,6 +35,7 @@ from toyslam_tpu_torch.core.pointcloud import (PointCloud, pad_to,
                                                voxel_downsample,
                                                voxel_downsample_lanes)
 from toyslam_tpu_torch.registration import ndt
+from toyslam_tpu_torch.utils.profiling import span, spanned
 
 
 class OdometryConfig(NamedTuple):
@@ -121,6 +122,7 @@ def _downsample(xyzi, mask, cfg: OdometryConfig) -> PointCloud:
                             with_intensity=cfg.keep_intensity)
 
 
+@spanned("odometry.downsample")
 def _downsample_lanes(xyzi, mask, cfg: OdometryConfig) -> PointCloud:
     return voxel_downsample_lanes(xyzi, mask, cfg.scan_leaf,
                                   cfg.work_capacity,
@@ -153,10 +155,10 @@ def odometry_step_lanes(state: OdometryState, xyzi, mask,
     fine_cfg = config.ndt
     if config.coarse_leaf > 0:
         # Same map, fewer source points: a downsample of the working cloud.
-        coarse = voxel_downsample_lanes(cur_ds.xyzi, cur_ds.mask,
-                                        config.coarse_leaf,
-                                        config.coarse_capacity,
-                                        with_intensity=config.keep_intensity)
+        with span("odometry.downsample"):
+            coarse = voxel_downsample_lanes(
+                cur_ds.xyzi, cur_ds.mask, config.coarse_leaf,
+                config.coarse_capacity, with_intensity=config.keep_intensity)
         res_c = ndt.ndt_align_lanes(m, coarse, guess, config.ndt)
         guess = torch.where(res_c.converged[:, None, None], res_c.transform,
                             guess)
@@ -267,6 +269,7 @@ def ndt_odometry(scans_xyzi, scans_mask,
     return OdometryOutput(*(f[0] for f in out))
 
 
+@spanned("mapping.merge")
 def _merge_into_map(map_cloud: PointCloud, cur_ds: PointCloud, pose,
                     config: OdometryConfig) -> PointCloud:
     """Transform the downsampled scan into the world frame, merge it into
@@ -290,6 +293,7 @@ def _merge_into_map(map_cloud: PointCloud, cur_ds: PointCloud, pose,
     return voxel_downsample(merged, config.map_leaf, map_cloud.capacity)
 
 
+@spanned("mapping.init")
 def mapping_init(first_xyzi, first_mask, map_capacity: int,
                  config: OdometryConfig = OdometryConfig()) -> MappingState:
     config = _for_mapping(config)
@@ -299,6 +303,7 @@ def mapping_init(first_xyzi, first_mask, map_capacity: int,
     return MappingState(odometry=odo, map_cloud=map0)
 
 
+@spanned("mapping.step")
 def mapping_step(state: MappingState, xyzi, mask,
                  config: OdometryConfig = OdometryConfig()):
     """One scan of online mapping; chained steps equal ``ndt_mapping`` bit

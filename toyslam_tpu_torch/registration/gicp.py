@@ -40,6 +40,7 @@ from toyslam_tpu_torch.core import se3
 from toyslam_tpu_torch.core.pointcloud import PointCloud
 from toyslam_tpu_torch.ops import gicp_kernels, nn_kernels
 from toyslam_tpu_torch.ops.eigh3 import eigh3_soa
+from toyslam_tpu_torch.utils.profiling import span, spanned
 
 _BIG = 1.0e9
 
@@ -87,6 +88,7 @@ class GICPResult(NamedTuple):
     host_syncs: int = 0
 
 
+@spanned("gicp.covariances")
 def compute_covariances(xyz, mask, k: int, epsilon: float,
                         exact_knn: bool = False):
     """Segal regularised covariances ``[N, 3, 3]``: eigenvalues ->
@@ -172,6 +174,7 @@ def _problem(source: PointCloud, target: PointCloud,
                     config.max_correspondence_distance ** 2)
 
 
+@spanned("gicp.correspondences")
 def _correspondences(prob: _Problem, R, t):
     """K6's operands at pose (R, t): matched targets ``q [3, N]``, packed
     Mahalanobis ``m6 [6, N]`` and weights ``w [N]`` (``impl:425-436``)."""
@@ -196,6 +199,7 @@ class _GNStep:
         self.a_index = torch.tensor(_A_INDEX).to(device, non_blocking=True)
         self.damping = damping * torch.eye(6, dtype=dtype, device=device)
 
+    @spanned("gicp.gn_step")
     def __call__(self, xyz, q, m6, w, R, t):
         s27 = gicp_kernels.gicp_terms(torch.cat([R.reshape(-1), t]), xyz, q,
                                       m6, w)
@@ -204,6 +208,7 @@ class _GNStep:
         return se3.so3_exp(dx[3:6]) @ R, t + dx[:3]
 
 
+@spanned("gicp.align")
 def gicp_align(source: PointCloud, target: PointCloud, guess=None,
                config: GICPConfig = GICPConfig()) -> GICPResult:
     """Align ``source`` to ``target``; returns the source -> target
@@ -224,19 +229,22 @@ def gicp_align(source: PointCloud, target: PointCloud, guess=None,
         R, t = T[:3, :3], T[:3, 3]
         for _ in range(config.inner_iterations):
             R, t = step(prob.xyz, q, m6, w, R, t)
-        T_new = se3.make_transform(R, t)
-        # Convergence on the transform change (transformation_epsilon)
-        dT = (T_new - T).abs()
-        conv = ((dT[:3, 3].amax() < config.transformation_epsilon)
-                & (dT[:3, :3].amax() < config.rotation_epsilon))
-        r = prob.src @ R.T + t - q.T
-        err_d = ((r * r).sum(1) * w).sum() / w.sum().clamp(min=1.0)
-        host = torch.cat([conv.to(dtype)[None], err_d[None],
-                          T_new.reshape(-1)]).cpu()  # the iteration's sync
-        converged = bool(host[0])
-        err = host[1]
-        T_host = host[2:].reshape(4, 4)
-        T = T_new
-        it += 1
+        with span("gicp.converge"):
+            T_new = se3.make_transform(R, t)
+            # Convergence on the transform change (transformation_epsilon)
+            dT = (T_new - T).abs()
+            conv = ((dT[:3, 3].amax() < config.transformation_epsilon)
+                    & (dT[:3, :3].amax() < config.rotation_epsilon))
+            r = prob.src @ R.T + t - q.T
+            err_d = ((r * r).sum(1) * w).sum() / w.sum().clamp(min=1.0)
+            host = torch.cat([conv.to(dtype)[None], err_d[None],
+                              T_new.reshape(-1)])
+            with span("gicp.sync"):  # the iteration's sync
+                host = host.cpu()
+            converged = bool(host[0])
+            err = host[1]
+            T_host = host[2:].reshape(4, 4)
+            T = T_new
+            it += 1
     return GICPResult(transform=T_host, converged=converged, iterations=it,
                       error=err, host_syncs=it)

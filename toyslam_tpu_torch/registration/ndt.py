@@ -58,6 +58,7 @@ from toyslam_tpu_torch.ops.eigh3 import eigh3_soa
 from toyslam_tpu_torch.ops.segment import (INT_MAX, run_bookkeeping_lanes,
                                            seg_broadcast_lanes,
                                            seg_reduce_lanes, sort_lanes)
+from toyslam_tpu_torch.utils.profiling import span, spanned
 
 
 class NDTConfig(NamedTuple):
@@ -152,6 +153,7 @@ def build_ndt_map(target: PointCloud, config: NDTConfig) -> NDTMap:
     return NDTMap(*(f[0] for f in lanes))
 
 
+@spanned("ndt.build_map")
 def build_ndt_map_lanes(targets: PointCloud, config: NDTConfig) -> NDTMap:
     """``build_ndt_map`` of B targets at once (``xyzi [B, N, 4]``, ``mask
     [B, N]``): an NDTMap whose fields have a leading B, each lane in its
@@ -462,6 +464,7 @@ class _Evaluator:
             params, self.xyz, self.mask, m.min_b, m.div,
             m.hash_table.shape[0], self.inv_leaf, self.offsets)
 
+    @spanned("ndt.gather")
     def gather(self, params):
         return ndt_kernels.ndt_gather_repack(self.map.hash_table,
                                              *self.neighbor_hash(params))
@@ -474,18 +477,25 @@ class _Evaluator:
                 self.inv_leaf, self.offsets)
         return ndt_kernels.ndt_terms_packed(params, self.xyz, stats)
 
+    @spanned("ndt.derivs")
     def derivs(self, p, stats=None):
         """Host (score, grad, hess) at host pose p: one device-to-host copy
         (the first also carries the source point count)."""
         sums = self.sums(self.params(p), stats)
         if self.n_src is None:
             both = torch.cat([sums, self.mask.sum(dtype=sums.dtype)[None]])
-            both = both.cpu().numpy()
+            both = _to_host(both)
             sums, self.n_src = both[:-1], np.maximum(both[-1], 1)
         else:
-            sums = sums.cpu().numpy()
+            sums = _to_host(sums)
         self.syncs += 1
         return _unpack(sums)
+
+
+def _to_host(t):
+    """An evaluation's device-to-host copy (its host sync), as numpy."""
+    with span("ndt.sync"):
+        return t.cpu().numpy()
 
 
 def gather_neighborhood(ndt_map, src_xyz, src_mask, p, resolution,
@@ -715,6 +725,7 @@ def ndt_align(ndt_map: NDTMap, source: PointCloud, guess=None,
     return align_with(ev, guess, config)
 
 
+@spanned("ndt.align")
 def align_with(ev, guess, config: NDTConfig) -> NDTResult:
     """``ndt_align``'s host loop and result over an evaluator: anything
     with ``dtype``, ``params(p)``, ``gather(params)``, ``derivs(p,
@@ -777,6 +788,7 @@ class _LaneEvaluator:
         return (torch.from_numpy(host).to(self.dev, non_blocking=True),
                 ids.to(self.dev, non_blocking=True))
 
+    @spanned("ndt.gather")
     def gather(self, lanes, poses):
         """The frozen neighbourhoods of ``lanes`` at their host poses: the
         plain neighbour hash over the lanes at once, one K2 launch over the
@@ -801,6 +813,7 @@ class _LaneEvaluator:
                                      dtype=self.dtype, device=self.dev)
         self.stats[idx] = packed.view(10, len(lanes), -1).transpose(0, 1)
 
+    @spanned("ndt.derivs")
     def derivs(self, requests):
         """Host (score, grad, hess) of every request ``(lane, pose, frozen)``
         in one device-to-host copy: one K1 launch over the fresh ones and
@@ -826,15 +839,16 @@ class _LaneEvaluator:
         flat = torch.cat(sums).reshape(-1)
         if self.n_src is None:
             counts = self.mask.sum(1, dtype=flat.dtype)
-            host = torch.cat([flat, counts]).cpu().numpy()
+            host = _to_host(torch.cat([flat, counts]))
             flat, self.n_src = host[:-self.B], np.maximum(host[-self.B:], 1)
         else:
-            flat = flat.cpu().numpy()
+            flat = _to_host(flat)
         rows = flat.reshape(len(order), ndt_kernels.N_TERMS)
         return dict(zip(order, (_unpack(r) for r in rows)))
 
 
 
+@spanned("ndt.align")
 def ndt_align_lanes(ndt_map: NDTMap, sources: PointCloud, guesses=None,
                     config: NDTConfig = NDTConfig()) -> NDTResult:
     """Align B sources (``xyzi [B, N, 4]``, ``mask [B, N]``) to the lanes

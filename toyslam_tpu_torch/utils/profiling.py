@@ -1,5 +1,5 @@
-"""Per-stage wall timers and the canonical scan log line (the port of
-``toyslam_tpu/utils/profiling.py``).
+"""Per-stage wall timers, the program's trace spans and the canonical scan
+log line (the port of ``toyslam_tpu/utils/profiling.py``).
 
 Replaces the reference's inline timing prints (per-align "msec +
 fitness", ``ndt_rosbag_mapping_node.cpp:127-133``; per-frame ms,
@@ -7,17 +7,54 @@ fitness", ``ndt_rosbag_mapping_node.cpp:127-133``; per-frame ms,
 ``align.cpp:20-30``). A timed section ends with
 ``torch.cuda.synchronize`` on every CUDA device that holds a tensor of its
 result, so the time includes the work queued on the card for it; results
-on the CPU need no wait. For device-side breakdowns use
-``torch.profiler`` or CUDA events.
+on the CPU need no wait.
+
+Device-side breakdowns come from ``torch.profiler`` sessions, inside which
+the program marks its stages with ``span(name)`` (or the ``spanned(name)``
+decorator): a span named ``toyslam.<name>`` in the session's host
+timeline, on the clock of the device's activity, nested in the spans open
+around it. A span is recorded only while a profiler records
+(``torch.autograd._profiler_enabled()``); otherwise ``span`` returns one
+shared no-op context, and costs that check. It is a plain host op of the
+session (``RecordFunctionFast``), not a user annotation such as
+``torch.profiler.record_function`` makes: the profiler mirrors those onto
+the device's timeline, where they would read as device work. A span adds
+no tensor, device operation or host sync.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from collections import defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import torch
+
+SPAN_PREFIX = "toyslam."
+_NO_SPAN = nullcontext()
+
+
+def span(name: str):
+    """A context that records the span ``toyslam.<name>`` while a profiler
+    records, and the shared no-op context otherwise."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + name)
+    return _NO_SPAN
+
+
+def spanned(name: str):
+    """Decorator: every call of the function runs inside ``span(name)``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return inner
+
+    return wrap
 
 
 def _cuda_devices(obj, found: set) -> set:
