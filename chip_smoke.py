@@ -74,7 +74,8 @@ were launched, that the results match the same runs through the plain
 versions (K2, K4 and D2 bit for bit; K1's in-kernel neighbour hash bit for
 bit against the plain hash; K1 and K3 at every evaluation of the plain
 odometry) and are bit-identical on a rerun, that one NDT evaluation is
-three device operations and one K6 call one, counts the host syncs and
+three device operations, one K6 call one and a GN step two (K6 and
+``gicp_update``), counts the host syncs and
 K4's rescored columns, and prints the timings with the card's name and
 power limit. For mapping it checks that the map never fills, that its
 poses equal the odometry's bit for bit, that chained steps and a resume
@@ -91,7 +92,9 @@ equals ``fitness_score`` on the same clouds and pose and that each method
 launched its kernels, and that on the app's own clouds (at most 24576
 voxels) each method's kernels agree with their plain versions at every
 call of its plain route (K4 bit for bit, K5 within 1 bf16 ulp, K1 and K6
-within 2e-6 of their terms' magnitudes), with the two routes' poses
+within 2e-6 of their terms' magnitudes, ``gicp_update`` within
+``UPDATE_STEP_RTOL`` of its step plus ``UPDATE_ULPS`` f32 ulps), with
+the two routes' poses
 within the kernel-vs-plain bounds of the NDT and registration phases;
 that ``fitness_score`` through K4 equals its plain
 route bit for bit and the f64 CPU result within 2e-6; that the search
@@ -199,6 +202,16 @@ TERMS_RTOL = 1e-4  # K1/K3/K6 sums vs plain, relative to the group's largest
 # GICP's optimum, 1.83e-7 on K1; NVIDIA H100 80GB HBM3, 700 W); one
 # pair's terms dropped from 24576 would read ~4e-5.
 TERMS_MAG_RTOL = 2e-6
+# gicp_update against its plain version: the outputs within UPDATE_STEP_RTOL
+# of the plain step (the largest change of a param) plus UPDATE_ULPS f32
+# ulps of the largest param. Two f32 LUs of GICP's normal matrices
+# (condition ~1e3) part by ~1e3 2^-24 of the step; the poses' last ulps
+# round apart in so3_exp(dtheta) R.
+UPDATE_STEP_RTOL = 1e-3
+UPDATE_ULPS = 4
+# The update's operations: the 6x6 LU with partial pivoting and the two
+# substitutions (~160), so3_exp (~50 with sinf, cosf) and R' = E R (45).
+GICP_UPDATE_FLOPS = 255
 PAIRS_TOL_M, PAIRS_TOL_RAD = 1e-3, 1e-4  # kernel vs plain odometry poses
 # eigh3 in f32 on the card against f64 on the host, on the same f32
 # covariances: eigenvalues and the reconstruction V diag(w) V^T relative
@@ -389,7 +402,7 @@ SHARD_TIMING_REPS = 3
 GLOO_TIMEOUT_S = 120
 NEW_PATH_KERNELS = ("ndt_terms_gathered", "ndt_gather_repack",
                     "ndt_terms_packed", "nearest_neighbor", "neg_dist_bf16",
-                    "gicp_terms")
+                    "gicp_terms", "gicp_update")
 # The card's published peaks (H100 SXM at 700 W) for the bounds.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -432,6 +445,8 @@ KERNELS = {  # name -> (source, Pallas kernel it replaces)
     "nearest_neighbor": (NN_SRC, "toyslam_tpu/ops/nn_pallas.py:197"),
     "neg_dist_bf16": (NN_SRC, "toyslam_tpu/ops/nn_pallas.py:152"),
     "gicp_terms": (GICP_SRC, "toyslam_tpu/ops/gicp_pallas.py:104"),
+    # No Pallas kernel: the jnp solve and pose update of the GN step.
+    "gicp_update": (GICP_SRC, "toyslam_tpu/registration/gicp.py:327-330"),
     "split_dot": (RANK_SRC, "benchmarks/diag_bf16_concat.py:37"),
     "lane_row_sum": (GATHER_SRC, "benchmarks/profile_gather_modes.py:136"),
 }
@@ -443,6 +458,7 @@ CUDA_NAMES = {
     "nearest_neighbor": "nearest_kernel",
     "neg_dist_bf16": "neg_dist_kernel",
     "gicp_terms": "gicp_terms_kernel",
+    "gicp_update": "gicp_update_kernel",
     "lane_row_sum": "lane_row_sum_kernel",
 }
 
@@ -1059,7 +1075,9 @@ def kernel_err(name, args, got, want):
     """(error, within its bound) of a kernel's output against its plain
     version's on the same inputs: K2 and K4 bit for bit, K5 within 1 bf16
     ulp on NN_SHARE of the valid columns' entries (a column is valid where
-    its |t|^2 is below the sentinel), K1, K3 and K6 within TERMS_MAG_RTOL
+    its |t|^2 is below the sentinel), ``gicp_update`` within
+    UPDATE_STEP_RTOL of its plain step plus UPDATE_ULPS ulps (the error is
+    its largest absolute one), K1, K3 and K6 within TERMS_MAG_RTOL
     of the magnitudes of each sum's terms. Along a path the sums are
     taken near an optimum too, where a gradient cancels to far below its
     terms; an error relative to the largest sum of a group (phase 7's
@@ -1084,6 +1102,12 @@ def kernel_err(name, args, got, want):
         share = float((diff.abs() <= 2.0 ** -8 * pd[:, cols].abs())
                       .double().mean())
         return float(diff.abs().max()), share >= NN_SHARE
+    if name == "gicp_update":
+        params = args[1]
+        step = float((want - params).abs().max())
+        ulp = 2.0 ** -23 * max(1.0, float(params.abs().max()))
+        diff = float((got - want).abs().max())
+        return diff, diff <= UPDATE_STEP_RTOL * step + UPDATE_ULPS * ulp
     if name == "gicp_terms":
         rel, _ = terms_err(got, want, GN_GROUPS)
         terms = gicp_pair_terms(*args)
@@ -1118,6 +1142,7 @@ def checked_plain_route(calls):
             want = plain(*args)
             got = kernel(*args)
             rows = (args[0].shape[0] if mod is nn_kernels
+                    else 1 if name == "gicp_update"  # one 6x6 system
                     else max(args[1].shape))  # the points, either layout
             calls.append((name, rows, *kernel_err(name, args, got, want),
                           None))
@@ -1173,7 +1198,8 @@ def align_app_kernels(s_ds, t_ds):
     bounds = {"ICP": (ICP_TOL_M, ICP_TOL_RAD),
               "GICP": (GICP_TOL_M, GICP_TOL_RAD)}
     wants = {"ICP": {"nearest_neighbor"},
-             "GICP": {"nearest_neighbor", "neg_dist_bf16", "gicp_terms"}}
+             "GICP": {"nearest_neighbor", "neg_dist_bf16", "gicp_terms",
+                      "gicp_update"}}
     print(f"  kernels vs plain along the app's aligns (N "
           f"{s_ds.capacity}, M {t_ds.capacity}, {int(s_ds.mask.sum())} and "
           f"{int(t_ds.mask.sum())} valid points), from the identity:")
@@ -1242,7 +1268,8 @@ def align_app_phase(dev, a_xyzi, a_mask, a_gt):
     a_rel = np.linalg.inv(a_gt[0]) @ a_gt[1]
     truth_t, _ = pose_diff(a_rel, np.eye(4))
     wants = {"ICP": ("nearest_neighbor",),
-             "GICP": ("nearest_neighbor", "neg_dist_bf16", "gicp_terms")}
+             "GICP": ("nearest_neighbor", "neg_dist_bf16", "gicp_terms",
+                      "gicp_update")}
     app_launch = dict.fromkeys(NEW_PATH_KERNELS, 0)
     for m in rep["methods"]:
         T = torch.tensor(m["transform"], dtype=torch.float32)
@@ -3833,6 +3860,20 @@ def main() -> int:
     check(rel_err <= TERMS_RTOL, "K6 gicp_terms disagrees with its plain "
                                  "version")
     check(k6_same, "K6 gicp_terms is not bit-identical on a rerun")
+    upd_args = (k6_out, gparams, gcfg.damping)
+    upd_out = gicp_kernels.gicp_update(*upd_args).clone()
+    upd_same = torch.equal(
+        upd_out.view(torch.int32),
+        gicp_kernels.gicp_update(*upd_args).view(torch.int32))
+    err["gicp_update"], upd_ok = kernel_err(
+        "gicp_update", upd_args, upd_out,
+        gicp_kernels.gicp_update_plain(*upd_args))
+    print(f"  gicp_update: max abs err {err['gicp_update']:.3g} (bound "
+          f"{UPDATE_STEP_RTOL} of the step, "
+          f"{float((upd_out - gparams).abs().max()):.3g}, plus "
+          f"{UPDATE_ULPS} ulps); rerun bit-identical: {upd_same}")
+    check(upd_ok, "gicp_update disagrees with its plain version")
+    check(upd_same, "gicp_update is not bit-identical on a rerun")
 
     # Registration path: counts reset, then one GICP and one ICP align.
     nn_kernels.reset_launch_counts()
@@ -3862,8 +3903,10 @@ def main() -> int:
 
     nn_plain = {name: getattr(nn_kernels, name + "_plain")
                 for name in nn_kernels.LAUNCHES}
-    with mock.patch.multiple(nn_kernels, **nn_plain), mock.patch.object(
-            gicp_kernels, "gicp_terms", gicp_kernels.gicp_terms_plain):
+    gicp_plain = {name: getattr(gicp_kernels, name + "_plain")
+                  for name in gicp_kernels.LAUNCHES}
+    with mock.patch.multiple(nn_kernels, **nn_plain), mock.patch.multiple(
+            gicp_kernels, **gicp_plain):
         g_plain = gicp.gicp_align(source, target, None, gcfg)
         i_plain = icp.icp_align(source, target)
     for name, r, rp, (tol_m, tol_rad) in (
@@ -3892,10 +3935,9 @@ def main() -> int:
 
     R0, t0_ = eye3, zero3
     nd_op = nn_kernels.neg_dist_bf16(xyz_t, tsq_all, prob.tgt_t, prob.tsq)
-    step = gicp._GNStep(gcfg.damping, torch.float32, dev)
     probes = {
-        "one inner GN step (K6, solve_ex, pose update)":
-            lambda: step(prob.xyz, q, m6, w, R0, t0_),
+        "one inner GN step (K6, gicp_update)":
+            lambda: gicp._gn_step(prob.xyz, q, m6, w, gparams, gcfg.damping),
         "K4 correspondences + Mahalanobis":
             lambda: gicp._correspondences(prob, R0, t0_),
         "covariances (K5 + topk + eigh3)":
@@ -3905,8 +3947,6 @@ def main() -> int:
         "torch.topk (k 20) of K5's operand": lambda: torch.topk(nd_op, 20),
         "pose host-to-device copy (non-blocking)":
             lambda: torch.eye(4).to(dev, non_blocking=True),
-        "GN-step constants (_GNStep)":
-            lambda: gicp._GNStep(gcfg.damping, torch.float32, dev),
         "control: 1500 one-element additions (launches only)":
             lambda: [zero3.add(1.0) for _ in range(1500)],
     }
@@ -3940,11 +3980,15 @@ def main() -> int:
     ms["gicp_terms"] = (
         cuda_ms(lambda: gicp_kernels.gicp_terms(*k6_args)),
         cuda_ms(lambda: gicp_kernels.gicp_terms_plain(*k6_args)))
+    ms["gicp_update"] = (
+        cuda_ms(lambda: gicp_kernels.gicp_update(*upd_args)),
+        cuda_ms(lambda: gicp_kernels.gicp_update_plain(*upd_args)))
     library["nearest_neighbor"] = cuda_ms(
         lambda: torch.cdist(moved, tgt_xyz).argmin(1))
     library["neg_dist_bf16"] = cuda_ms(
         lambda: torch.addmm(neg_tsq, a4, b4).to(torch.bfloat16))
     library["gicp_terms"] = None
+    library["gicp_update"] = None
     k4_bytes = nbytes(moved, prob.tgt_t, prob.tsq) + 8 * n
     bounds["nearest_neighbor"] = bound(
         k4_bytes, NN_MMA_FLOPS_PER_PAIR * n * m_cols, PEAK_BF16_FLOPS)
@@ -3954,6 +3998,9 @@ def main() -> int:
         NN_FLOPS_PER_PAIR * n * m_cols)
     bounds["gicp_terms"] = bound(nbytes(*k6_args) + 27 * 4,
                                  GICP_FLOPS_PER_PAIR * n)
+    # 27 sums and 12 params in, 12 params out.
+    bounds["gicp_update"] = bound(nbytes(k6_out, gparams) + 12 * 4,
+                                  GICP_UPDATE_FLOPS)
     launch_dev_ms["nearest_neighbor"] = device_ms_per_launch(
         lambda: nn_kernels.nearest_neighbor(moved, prob.tgt_t, prob.tsq),
         CUDA_NAMES["nearest_neighbor"])
@@ -3962,6 +4009,9 @@ def main() -> int:
         CUDA_NAMES["neg_dist_bf16"])
     launch_dev_ms["gicp_terms"] = device_ms_per_launch(
         lambda: gicp_kernels.gicp_terms(*k6_args), CUDA_NAMES["gicp_terms"])
+    launch_dev_ms["gicp_update"] = device_ms_per_launch(
+        lambda: gicp_kernels.gicp_update(*upd_args),
+        CUDA_NAMES["gicp_update"])
     # K6 as a call: its device operations, their device time queued behind
     # a spin, the host's cost of issuing it, and an empty launch of its grid.
     costs = gicp_call_ops.call_costs(
@@ -3997,7 +4047,7 @@ def main() -> int:
           f"{k6_extra['empty_launch_ms']:.4f} ms a launch")
     for name, lib_name in (("nearest_neighbor", "cdist + argmin"),
                            ("neg_dist_bf16", "addmm + to(bfloat16)"),
-                           ("gicp_terms", None)):
+                           ("gicp_terms", None), ("gicp_update", None)):
         lib_txt = (f", library ({lib_name}) {library[name]:.4f} ms"
                    if lib_name else ", no library call")
         print(f"  {name}: kernel {ms[name][0]:.4f} ms (device "

@@ -20,9 +20,13 @@ plain version rounds); K5 within 1 bf16 ulp on 99.9 % of the valid
 entries (it rounds each step as its plain version does); K6 sums within rtol
 1e-4 of the largest sum of their group, bit-identical on a rerun, one device
 operation a call, at N from 1 to past its 256-correspondence blocks and
-several waves of them. A GICP align on the card within
-1e-3 m / 1e-3 rad of the same align on the CPU (a bf16 tie can swap a
-covariance neighbour; the CPU and the card break top-k ties differently).
+several waves of them. The GN update after K6 (``gicp_update``) against
+its plain version on 1000 generated systems and poses, with the bounds
+stated beside ``UPDATE_DX_RTOL``; a GN step two device operations, and an
+align one ``gicp_update`` launch a K6 launch. A GICP align on the card
+within 1e-3 m / 1e-3 rad of the same align on the CPU (a bf16 tie can swap
+a covariance neighbour; the CPU and the card break top-k ties
+differently).
 Mapping on the card: poses equal to odometry's bit for bit, and a
 checkpoint that keeps devices and dtypes and resumes bit-identically.
 ``fitness_score`` through K4 equal to its plain route bit for bit;
@@ -65,7 +69,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from toyslam_tpu_torch import convert  # noqa: E402
-from toyslam_tpu_torch.core import pointcloud  # noqa: E402
+from toyslam_tpu_torch.core import pointcloud, se3  # noqa: E402
 from toyslam_tpu_torch.diag import gicp_call_ops  # noqa: E402
 from toyslam_tpu_torch.estimators import eskf, trilateration  # noqa: E402
 from toyslam_tpu_torch.ops import gather_kernels, gicp_kernels  # noqa: E402
@@ -78,6 +82,14 @@ from toyslam_tpu_torch.utils import checkpoint  # noqa: E402
 from toyslam_tpu_torch.utils.profiling import span  # noqa: E402
 
 pytestmark = pytest.mark.gpu
+
+# gicp_update against its plain version (test_gicp_update_matches_plain_on_
+# card), about twice what the card read (NVIDIA H100 80GB HBM3, 700 W): the step
+# 1.88e-5 of the plain step's largest entry; below the Taylor branch equal
+# (one f32 ulp of 1 allowed); R' orthonormal within 2.46e-7.
+UPDATE_DX_RTOL = 4e-5
+UPDATE_TAYLOR_ATOL = 2.0 ** -23
+UPDATE_ORTHO_TOL = 5e-7
 
 
 @pytest.fixture(scope="module")
@@ -465,7 +477,7 @@ def test_nn_and_gicp_kernels_match_plain_on_card(cuda, clouds):
                 / want[sl].abs().max()) <= 1e-4
     assert nn_kernels.LAUNCHES == {"nearest_neighbor": 3,
                                    "neg_dist_bf16": 2}
-    assert gicp_kernels.LAUNCHES == {"gicp_terms": 1}
+    assert gicp_kernels.LAUNCHES == {"gicp_terms": 1, "gicp_update": 0}
     with pytest.raises(TypeError):
         gicp_kernels.gicp_terms(params.double(), prob.xyz.double(),
                                 q.double(), m6.double(), w.double())
@@ -484,6 +496,110 @@ def test_gicp_align_on_card_matches_cpu(cuda, clouds):
                                atol=1e-3)
     np.testing.assert_allclose(b.transform[:3, :3], a.transform[:3, :3],
                                atol=1e-3)
+
+
+def test_gicp_align_launches_one_update_a_step_on_card(cuda, clouds):
+    """Over two aligns on the card, each GN step one K6 launch and one
+    ``gicp_update`` launch."""
+    src, tgt = (pointcloud.PointCloud(*(t.to(cuda) for t in c))
+                for c in (clouds[1], clouds[0]))
+    guess = torch.eye(4)
+    guess[:3, 3] = torch.tensor([0.1, -0.05, 0.02])
+    gicp_kernels.reset_launch_counts()
+    steps = sum(gicp.gicp_align(src, tgt, g).iterations
+                for g in (None, guess)) * gicp.GICPConfig().inner_iterations
+    assert gicp_kernels.LAUNCHES == {"gicp_terms": steps,
+                                     "gicp_update": steps}
+
+
+def _update_cases(n, rng):
+    """``n`` damped GN systems as K6's 27 sums, and poses as its params,
+    in f64: A SPD with eigenvalues log-uniform in [1, 1e3], the step dx of
+    norm 1e-2 to 1e-1; the last ``n // 8`` with every entry of dx near
+    1e-9 (the rotation step below the 1e-7 rad Taylor branch), four of
+    them with dx exactly 0. R a random rotation, t within 1 m."""
+    Q, _ = np.linalg.qr(rng.normal(size=(n, 6, 6)))
+    lam = 10.0 ** rng.uniform(0, 3, (n, 6))
+    A = Q @ (lam[:, :, None] * Q.transpose(0, 2, 1))
+    A = 0.5 * (A + A.transpose(0, 2, 1))
+    dx = rng.normal(size=(n, 6))
+    dx *= 10.0 ** rng.uniform(-2, -1, (n, 1)) / np.linalg.norm(
+        dx, axis=1, keepdims=True)
+    taylor = np.arange(n) >= n - n // 8
+    dx[taylor] *= 1e-7
+    dx[-4:] = 0.0
+    s27 = np.zeros((n, 27))
+    s27[:, gicp_kernels.A_INDEX] = A.reshape(n, 36)
+    s27[:, :6] = -(A @ dx[:, :, None])[..., 0]
+    R = se3.so3_exp(torch.from_numpy(rng.normal(size=(n, 3)))).numpy()
+    params = np.concatenate([R.reshape(n, 9), rng.uniform(-1, 1, (n, 3))],
+                            1)
+    return s27, params, taylor
+
+
+def _steps(out, params):
+    """dx = [t' - t, log(R' R^T)] in f64 from each row of params."""
+    out, params = out.double().cpu(), params.double().cpu()
+    R1, R0 = out[:, :9].reshape(-1, 3, 3), params[:, :9].reshape(-1, 3, 3)
+    return torch.cat([out[:, 9:] - params[:, 9:],
+                      se3.so3_log(R1 @ R0.transpose(1, 2))], 1)
+
+
+def test_gicp_update_matches_plain_on_card(cuda):
+    """``gicp_update`` against ``gicp_update_plain`` (``solve_ex`` and
+    ``so3_exp`` on the card) on 1000 systems and poses, one launch each,
+    bit-identical on a rerun. Where dx is 1e-2 to 1e-1 (875 systems), the
+    steps read back from the outputs differ by at most UPDATE_DX_RTOL of
+    the plain step's largest entry: two f32 LUs of a system of condition up
+    to 1e3, read through f32 poses. Below the Taylor branch (125, four of
+    them dx = 0) the outputs differ by at most UPDATE_TAYLOR_ATOL, and
+    every R' is orthonormal within UPDATE_ORTHO_TOL."""
+    n = 1000
+    s27, params, taylor = (torch.as_tensor(a) for a in
+                           _update_cases(n, np.random.default_rng(20)))
+    s27, params = (a.float().to(cuda) for a in (s27, params))
+    gicp_kernels.reset_launch_counts()
+    got = torch.stack([gicp_kernels.gicp_update(s27[i], params[i], 1e-6)
+                       for i in range(n)])
+    again = gicp_kernels.gicp_update(s27[0], params[0], 1e-6)
+    assert gicp_kernels.LAUNCHES == {"gicp_terms": 0, "gicp_update": n + 1}
+    assert torch.equal(again.view(torch.int32), got[0].view(torch.int32))
+    want = torch.stack([gicp_kernels.gicp_update_plain(s27[i], params[i],
+                                                       1e-6)
+                        for i in range(n)])
+    assert bool(torch.isfinite(got).all())
+    dx_got, dx_want = _steps(got, params), _steps(want, params)
+    rel = ((dx_got - dx_want).abs().amax(1)
+           / dx_want.abs().amax(1))[~taylor]
+    flat = (got - want).abs().amax(1).cpu()[taylor]
+    R = got[:, :9].double().cpu().reshape(-1, 3, 3)
+    ortho = (R.transpose(1, 2) @ R - torch.eye(3, dtype=torch.float64)
+             ).abs().amax()
+    print(f"gicp_update vs plain: dx rel err max {float(rel.max()):.3g} "
+          f"(median {float(rel.median()):.3g}); Taylor branch max abs "
+          f"{float(flat.max()):.3g}; R' orthonormal within "
+          f"{float(ortho):.3g}")
+    assert float(rel.max()) <= UPDATE_DX_RTOL
+    assert float(flat.max()) <= UPDATE_TAYLOR_ATOL
+    assert float(ortho) <= UPDATE_ORTHO_TOL
+    with pytest.raises(TypeError):
+        gicp_kernels.gicp_update(s27[0].double(), params[0].double(), 1e-6)
+
+
+def test_gn_step_is_two_device_operations_on_card(cuda, clouds):
+    """A GN step (``gicp._gn_step``) under torch.profiler: one K6 launch
+    and one ``gicp_update`` launch, nothing else."""
+    prob = _gicp_problem(cuda, clouds)
+    eye3, zero3 = torch.eye(3, device=cuda), torch.zeros(3, device=cuda)
+    q, m6, w = gicp._correspondences(prob, eye3, zero3)
+    params = torch.cat([eye3.reshape(-1), zero3])
+    calls = 20
+    prof = gicp_call_ops.profiled(
+        lambda: gicp._gn_step(prob.xyz, q, m6, w, params, 1e-6), calls)
+    by_name = prof["by_name"]
+    assert prof["ops"] == 2 * calls, by_name
+    for kernel in ("gicp_terms_kernel", "gicp_update_kernel"):
+        assert sum(c for k, c in by_name.items() if kernel in k) == calls
 
 
 PAD = pointcloud.PAD_COORD
@@ -720,7 +836,7 @@ def test_gicp_terms_one_launch_on_card(cuda, n):
     gicp_kernels.reset_launch_counts()
     got = gicp_kernels.gicp_terms(*args)
     again = gicp_kernels.gicp_terms(*args)
-    assert gicp_kernels.LAUNCHES == {"gicp_terms": 2}
+    assert gicp_kernels.LAUNCHES == {"gicp_terms": 2, "gicp_update": 0}
     assert got.shape == (27,) and got.dtype == torch.float32
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
     want = gicp_kernels.gicp_terms_plain(*args).double().cpu()

@@ -310,8 +310,9 @@ def test_empty_clouds_stay_finite(which):
 
 
 def test_wrappers_take_cpu_tensors_to_plain():
-    """On CPU tensors each of K4-K6 is its plain version and launches
-    nothing; a device with no kernel, or mixed devices, raise."""
+    """On CPU tensors each of K4-K6 and the GN update is its plain version
+    and launches nothing; a device with no kernel, or mixed devices,
+    raise."""
     rng = np.random.default_rng(0)
     src = torch.from_numpy(rng.normal(size=(64, 3)).astype(np.float32))
     tgt_t, tsq = nn_kernels.target_operands(src, torch.ones(64, dtype=bool),
@@ -328,15 +329,20 @@ def test_wrappers_take_cpu_tensors_to_plain():
                  ((nn_kernels.neg_dist_bf16(src, ssq, tgt_t, tsq),),
                   (nn_kernels.neg_dist_bf16_plain(src, ssq, tgt_t, tsq),)),
                  ((gicp_kernels.gicp_terms(*g),),
-                  (gicp_kernels.gicp_terms_plain(*g),))):
+                  (gicp_kernels.gicp_terms_plain(*g),)),
+                 ((gicp_kernels.gicp_update(g[1][0, :27], g[0], 1e-6),),
+                  (gicp_kernels.gicp_update_plain(g[1][0, :27], g[0],
+                                                  1e-6),))):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert set(nn_kernels.LAUNCHES.values()) == {0}
-    assert gicp_kernels.LAUNCHES == {"gicp_terms": 0}
+    assert gicp_kernels.LAUNCHES == {"gicp_terms": 0, "gicp_update": 0}
     with pytest.raises(ValueError, match="no nearest-neighbour kernel"):
         nn_kernels.nearest_neighbor(src.to("meta"), tgt_t.to("meta"),
                                     tsq.to("meta"))
     with pytest.raises(ValueError, match="several devices"):
         gicp_kernels.gicp_terms(g[0].to("meta"), *g[1:])
+    with pytest.raises(ValueError, match="several devices"):
+        gicp_kernels.gicp_update(g[1][0, :27], g[0].to("meta"), 1e-6)
 
 
 def test_convert_helpers():

@@ -27,6 +27,22 @@
 //   the last block to finish, which writes the 27 sums. No float atomics:
 //   reruns are bit-identical. Any N works: threads past N add nothing.
 //
+// gicp_update: the rest of a Gauss-Newton step after K6, in one launch. It
+// replaces no TPU kernel: the JAX package solves and updates in jnp
+// (toyslam_tpu/registration/gicp.py:326-330), which XLA fuses into its loop
+// on the TPU, while each PyTorch op of it is a launch of its own (about 53
+// a step around K6's one). One thread reads K6's 27 sums, the step's pose
+// params [12] and the damping, and writes the next pose params [12]:
+//   A = the sums in the row-major 6x6 layout + damping I, g = sums 0-5;
+//   dx = -A^-1 g by an LU with partial pivoting (the first largest pivot,
+//   as getrf's isamax picks it), forward and back substitution;
+//   R' = so3_exp(dx[3:6]) R (Rodrigues with the Taylor terms below 1e-7
+//   rad, precise sinf/cosf), t' = t + dx[:3].
+// What bounds it: ~250 f32 operations, most of them dependent, in one
+// thread, and a launch; the 204 bytes it moves are nothing. The design is
+// about launches: the step's ops become one, and its output is K6's next
+// params, so nothing sits between two steps on the device or the host.
+//
 // gicp_empty launches an empty kernel on K6's grid, so that a check can set
 // K6's device time beside the cost of a launch of that shape.
 //
@@ -154,6 +170,113 @@ gicp_terms_kernel(const float* __restrict__ params,
   grid_sum<kThreads, kSlots>(acc, partials, out, counter);
 }
 
+constexpr int kDim = 6;  // the GN step's unknowns: dt (3), dtheta (3)
+
+// Index into the 27 sums of the row-major 6x6 normal matrix's entry
+// (i, j): [[A_tt, A_tr], [A_tr^T, A_rr]] (A_INDEX in
+// toyslam_tpu_torch/ops/gicp_kernels.py).
+__device__ constexpr int upper3(int a, int b) {
+  return a <= b ? 3 * a - a * (a - 1) / 2 + (b - a) : upper3(b, a);
+}
+
+__device__ constexpr int a_index(int i, int j) {
+  return i < 3 && j < 3 ? 6 + upper3(i, j)
+         : i < 3        ? 12 + 3 * i + (j - 3)
+         : j < 3        ? 12 + 3 * j + (i - 3)
+                        : 21 + upper3(i - 3, j - 3);
+}
+
+__global__ void __launch_bounds__(1)
+gicp_update_kernel(const float* __restrict__ s27,
+                   const float* __restrict__ params, float damping,
+                   float* __restrict__ out) {
+  // Every loop has a constant trip count and is unrolled, so that the
+  // arrays stay in registers; the row swap is a select on each row.
+  float A[kDim][kDim], b[kDim], P[kParams];
+#pragma unroll
+  for (int i = 0; i < kDim; ++i) {
+#pragma unroll
+    for (int j = 0; j < kDim; ++j) A[i][j] = s27[a_index(i, j)];
+    b[i] = s27[i];
+    A[i][i] += damping;
+  }
+#pragma unroll
+  for (int c = 0; c < kParams; ++c) P[c] = params[c];
+
+  // LU with partial pivoting, the multipliers applied to b as they come.
+#pragma unroll
+  for (int k = 0; k < kDim; ++k) {
+    int p = k;
+    float best = fabsf(A[k][k]);
+#pragma unroll
+    for (int r = k + 1; r < kDim; ++r) {
+      if (fabsf(A[r][k]) > best) {
+        best = fabsf(A[r][k]);
+        p = r;
+      }
+    }
+#pragma unroll
+    for (int r = k + 1; r < kDim; ++r) {
+      if (r == p) {
+#pragma unroll
+        for (int c = k; c < kDim; ++c) {
+          const float x = A[k][c];
+          A[k][c] = A[r][c];
+          A[r][c] = x;
+        }
+        const float x = b[k];
+        b[k] = b[r];
+        b[r] = x;
+      }
+    }
+#pragma unroll
+    for (int r = k + 1; r < kDim; ++r) {
+      const float l = A[r][k] / A[k][k];
+#pragma unroll
+      for (int c = k + 1; c < kDim; ++c) A[r][c] -= l * A[k][c];
+      b[r] -= l * b[k];
+    }
+  }
+  float dx[kDim];
+#pragma unroll
+  for (int k = kDim - 1; k >= 0; --k) {
+    float s = b[k];
+#pragma unroll
+    for (int c = k + 1; c < kDim; ++c) s -= A[k][c] * dx[c];
+    dx[k] = s / A[k][k];
+  }
+#pragma unroll
+  for (int k = 0; k < kDim; ++k) dx[k] = -dx[k];
+
+  // so3_exp(w) = I + a K + b K K, K = skew(w), as core/se3.so3_exp has it.
+  const float wx = dx[3], wy = dx[4], wz = dx[5];
+  const float theta = sqrtf(wx * wx + wy * wy + wz * wz);
+  const bool small = theta < 1e-7f;
+  const float ca = small ? 1.0f - theta * theta / 6.0f : sinf(theta) / theta;
+  const float cb = small ? 0.5f - theta * theta / 24.0f
+                         : (1.0f - cosf(theta)) / (theta * theta);
+  const float K[3][3] = {{0.0f, -wz, wy}, {wz, 0.0f, -wx}, {-wy, wx, 0.0f}};
+  float E[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float kk = K[i][0] * K[0][j] + K[i][1] * K[1][j] +
+                       K[i][2] * K[2][j];
+      E[i][j] = (i == j ? 1.0f : 0.0f) + ca * K[i][j] + cb * kk;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      out[3 * i + j] = E[i][0] * P[j] + E[i][1] * P[3 + j] +
+                       E[i][2] * P[6 + j];
+    }
+    out[9 + i] = P[9 + i] + dx[i];
+  }
+}
+
 __global__ void gicp_empty_kernel() {}
 
 inline cudaStream_t as_stream(void* stream) {
@@ -173,6 +296,14 @@ extern "C" int gicp_terms(const void* params, const void* xyz, const void* q,
       static_cast<const float*>(w), static_cast<float*>(partials),
       static_cast<float*>(out), static_cast<unsigned int*>(counter),
       static_cast<int>(n));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gicp_update(const void* s27, const void* params,
+                           float damping, void* out, void* stream) {
+  gicp_update_kernel<<<1, 1, 0, as_stream(stream)>>>(
+      static_cast<const float*>(s27), static_cast<const float*>(params),
+      damping, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,4 +1,5 @@
-"""The GICP Gauss-Newton sums K6 and their plain PyTorch version (port of
+"""The GICP Gauss-Newton sums K6 and the step's update after them, each
+with its plain PyTorch version (K6 is the port of
 ``toyslam_tpu/ops/gicp_pallas.py``).
 
 ``gicp_terms`` takes CPU tensors to ``gicp_terms_plain`` and launches the
@@ -8,12 +9,20 @@ operation: the kernel writes the 27 sums itself. The kernel takes float32
 only; the plain version is dtype-generic and is the jnp GN body of
 ``toyslam_tpu/registration/gicp.py:300-326`` written as the 27 sums.
 
+``gicp_update`` takes the 27 sums and the step's params to the next
+step's params (the damped 6x6 solve and the left-perturbation pose
+update of ``gicp.py:327-330``) by the same rule: ``gicp_update_plain`` for
+CPU tensors, one launch of ``gicp_update_kernel`` for CUDA float32
+tensors. A GN step on the card is so two device operations.
+
 Layouts: params [12] = R row-major, t; xyz, q [3, N] source and matched
 target points; m6 [6, N] the symmetric Mahalanobis matrices (00 01 02 11 12
 22); w [N] weights (0 for rejected pairs). The 27 sums
 (``gicp_pallas.py:87-94``): gradient [sum w M r, sum w (R s) x (M r)] (6),
 A_tt = sum w M upper (6), A_tr = sum w M S^T row-major (9), A_rr = sum w
-S M S^T upper (6), with r = R s + t - q and S = skew(R s).
+S M S^T upper (6), with r = R s + t - q and S = skew(R s). ``A_INDEX``
+picks the row-major 6x6 normal matrix [[A_tt, A_tr], [A_tr^T, A_rr]] out
+of them.
 """
 
 from __future__ import annotations
@@ -32,12 +41,30 @@ PER_THREAD = 2  # kPer there: correspondences a thread
 
 # Kernel launches since the last reset; the wrapper adds one where it
 # launches its kernel and nowhere else.
-LAUNCHES = {"gicp_terms": 0}
+LAUNCHES = {"gicp_terms": 0, "gicp_update": 0}
 
 SOURCE = _cuda.CSRC / "gicp_kernels.cu"
 _lib = None
 _SYM = [0, 1, 2, 1, 3, 4, 2, 4, 5]  # m6 channel of M[i, j], row-major
 _UPPER = ([0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2])
+
+
+def _a_index():
+    upper = {(0, 0): 0, (0, 1): 1, (0, 2): 2, (1, 1): 3, (1, 2): 4, (2, 2): 5}
+
+    def at(i, j):
+        if i < 3 and j < 3:
+            return 6 + upper[min(i, j), max(i, j)]
+        if i < 3:
+            return 12 + 3 * i + (j - 3)  # A_tr[i, j - 3]
+        if j < 3:
+            return 12 + 3 * j + (i - 3)  # A_tr^T
+        return 21 + upper[min(i, j) - 3, max(i, j) - 3]
+
+    return [at(i, j) for i in range(6) for j in range(6)]
+
+
+A_INDEX = _a_index()  # a_index in csrc/gicp_kernels.cu
 
 
 def reset_launch_counts():
@@ -63,12 +90,24 @@ def gicp_terms_plain(params, xyz, q, m6, w):
                       A_tt[_UPPER], A_tr.reshape(-1), A_rr[_UPPER]])
 
 
+def gicp_update_plain(s27, params, damping):
+    """The next step's params from the 27 sums at ``params``: ``dx =
+    -(A + damping I)^-1 g`` (``solve_ex`` makes no host check), ``R <-
+    so3_exp(dx[3:6]) R``, ``t <- t + dx[:3]``."""
+    A = s27[A_INDEX].reshape(6, 6) + damping * torch.eye(
+        6, dtype=s27.dtype, device=s27.device)
+    dx = -torch.linalg.solve_ex(A, s27[:6]).result
+    R = se3.so3_exp(dx[3:6]) @ params[:9].reshape(3, 3)
+    return torch.cat([R.reshape(-1), params[9:12] + dx[:3]])
+
+
 def _library():
     global _lib
     if _lib is None:
         p, i64 = ctypes.c_void_p, ctypes.c_longlong
         _lib = _cuda.load(SOURCE, {
             "gicp_terms": [p, p, p, p, p, p, p, p, i64, i64, p],
+            "gicp_update": [p, p, ctypes.c_float, p, p],
             "gicp_empty": [i64, p]})
     return _lib
 
@@ -106,4 +145,17 @@ def gicp_terms(params, xyz, q, m6, w):
     _cuda.launch(_library().gicp_terms, params, xyz, q, m6, w, partials, out,
                  counter, n, grid)
     LAUNCHES["gicp_terms"] += 1
+    return out
+
+
+def gicp_update(s27, params, damping):
+    """The rest of a GN step after K6: the next params [12] from the 27
+    sums at ``params`` and the damping (float)."""
+    if _cuda.on_cpu("GICP", s27, params):
+        return gicp_update_plain(s27, params, damping)
+    _cuda.check("s27", s27, torch.float32, (N_TERMS,))
+    _cuda.check("params", params, torch.float32, (12,))
+    out = torch.empty(12, dtype=torch.float32, device=params.device)
+    _cuda.launch(_library().gicp_update, s27, params, float(damping), out)
+    LAUNCHES["gicp_update"] += 1
     return out

@@ -1,7 +1,8 @@
-"""The launch counts of the SLAM path's kernels, K1-K6, read and reset
-together: ``ops/ndt_kernels`` (K1-K3), ``ops/nn_kernels`` (K4, K5) and
-``ops/gicp_kernels`` (K6) each count a launch where their wrapper starts
-the kernel, and nowhere else."""
+"""The launch counts of the SLAM path's kernels, K1-K6 and the GICP
+update, read and reset together: ``ops/ndt_kernels`` (K1-K3),
+``ops/nn_kernels`` (K4, K5) and ``ops/gicp_kernels`` (K6, ``gicp_update``)
+each count a launch where their wrapper starts the kernel, and nowhere
+else."""
 
 from __future__ import annotations
 

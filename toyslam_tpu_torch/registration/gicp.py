@@ -24,10 +24,13 @@ a recall of ~0.95.
 
 The outer loop runs on the host: each outer iteration ends in one
 device-to-host copy of the convergence flag, the error and the pose
-(``GICPResult.host_syncs`` counts them); the 8 inner GN steps (K6, a 6x6
-``torch.linalg.solve_ex`` in the source dtype, the pose update) stay on the
-device. The products use ``torch.matmul``, which is full f32 on the card
-while TF32 is off (PyTorch's default).
+(``GICPResult.host_syncs`` counts them); the 8 inner GN steps stay on the
+device, each K6 and ``gicp_kernels.gicp_update`` (the 6x6 solve and the
+pose update): two launches on the card, and on the CPU the plain versions
+(``torch.linalg.solve_ex`` in the source dtype). The inner loop carries
+the pose as K6's params [12] (R row-major, t). The products use
+``torch.matmul``, which is full f32 on the card while TF32 is off
+(PyTorch's default).
 """
 
 from __future__ import annotations
@@ -43,26 +46,6 @@ from toyslam_tpu_torch.ops.eigh3 import eigh3_soa
 from toyslam_tpu_torch.utils.profiling import span, spanned
 
 _BIG = 1.0e9
-
-
-def _a_index():
-    """Index into the 27 GN sums of each entry of the row-major 6x6 normal
-    matrix [[A_tt, A_tr], [A_tr^T, A_rr]] (layout in ops/gicp_kernels.py)."""
-    upper = {(0, 0): 0, (0, 1): 1, (0, 2): 2, (1, 1): 3, (1, 2): 4, (2, 2): 5}
-
-    def at(i, j):
-        if i < 3 and j < 3:
-            return 6 + upper[min(i, j), max(i, j)]
-        if i < 3:
-            return 12 + 3 * i + (j - 3)  # A_tr[i, j - 3]
-        if j < 3:
-            return 12 + 3 * j + (i - 3)  # A_tr^T
-        return 21 + upper[min(i, j) - 3, max(i, j) - 3]
-
-    return [at(i, j) for i in range(6) for j in range(6)]
-
-
-_A_INDEX = _a_index()
 
 
 class GICPConfig(NamedTuple):
@@ -189,23 +172,14 @@ def _correspondences(prob: _Problem, R, t):
             corr_ok.to(prob.src.dtype))
 
 
-class _GNStep:
-    """One damped Gauss-Newton step on the device: K6's 27 sums, the 6x6
-    solve (``solve_ex`` makes no host check) and the left-perturbation pose
-    update ``R <- exp(dtheta) R``, ``t <- t + dt``."""
-
-    def __init__(self, damping: float, dtype, device):
-        # A pageable non-blocking copy: the host does not wait on the device.
-        self.a_index = torch.tensor(_A_INDEX).to(device, non_blocking=True)
-        self.damping = damping * torch.eye(6, dtype=dtype, device=device)
-
-    @spanned("gicp.gn_step")
-    def __call__(self, xyz, q, m6, w, R, t):
-        s27 = gicp_kernels.gicp_terms(torch.cat([R.reshape(-1), t]), xyz, q,
-                                      m6, w)
-        A = s27[self.a_index].reshape(6, 6) + self.damping
-        dx = -torch.linalg.solve_ex(A, s27[:6]).result
-        return se3.so3_exp(dx[3:6]) @ R, t + dx[:3]
+@spanned("gicp.gn_step")
+def _gn_step(xyz, q, m6, w, params, damping: float):
+    """One damped Gauss-Newton step from the pose ``params`` [12] to the
+    next: K6's 27 sums, then the solve and the left-perturbation update
+    ``R <- exp(dtheta) R``, ``t <- t + dt`` (``gicp_kernels.gicp_update``).
+    Both are looked up on the module at each call."""
+    s27 = gicp_kernels.gicp_terms(params, xyz, q, m6, w)
+    return gicp_kernels.gicp_update(s27, params, damping)
 
 
 @spanned("gicp.align")
@@ -219,16 +193,16 @@ def gicp_align(source: PointCloud, target: PointCloud, guess=None,
         torch.as_tensor(guess).detach().to("cpu", dtype))
     T = T_host.to(dev, non_blocking=True)
     prob = _problem(source, target, config)
-    step = _GNStep(config.damping, dtype, dev)
 
     err = torch.tensor(float("inf"), dtype=dtype)
     it = 0
     converged = False
     while not converged and it < config.max_iterations:
         q, m6, w = _correspondences(prob, T[:3, :3], T[:3, 3])
-        R, t = T[:3, :3], T[:3, 3]
+        params = torch.cat([T[:3, :3].reshape(-1), T[:3, 3]])
         for _ in range(config.inner_iterations):
-            R, t = step(prob.xyz, q, m6, w, R, t)
+            params = _gn_step(prob.xyz, q, m6, w, params, config.damping)
+        R, t = params[:9].view(3, 3), params[9:]
         with span("gicp.converge"):
             T_new = se3.make_transform(R, t)
             # Convergence on the transform change (transformation_epsilon)
