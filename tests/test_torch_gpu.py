@@ -1032,6 +1032,37 @@ def test_loam_odometry_no_host_sync_on_card(cuda):
         dim=1).max()) < 0.3
 
 
+def test_loam_step_no_host_sync_on_card(cuda):
+    """loam_init and three loam_step calls on the LOAM test world (16 x 360
+    rays) in f32 make no host synchronisation, counters included, and
+    give loam_odometry's poses on the card bit for bit."""
+    from toyslam_tpu_torch.pipelines import loam
+    from toyslam_tpu_torch.sim import loam_world
+
+    scans, _ = loam_world.drive(4, 3, step_dtype=np.float64)
+    xyzi, mask = (torch.from_numpy(a).to(cuda)
+                  for a in loam_world.pack(scans))
+    cfg = loam.LoamConfig(n_rings=16, vertical_fov_deg=(-25.0, 5.0))
+
+    def steps():
+        state = loam.loam_init(pointcloud.PointCloud(xyzi[0], mask[0]), cfg)
+        outs = []
+        for i in range(1, 4):
+            state, out = loam.loam_step(
+                state, pointcloud.PointCloud(xyzi[i], mask[i]), cfg)
+            outs.append(out)
+        return state, outs
+
+    state, outs = _no_host_sync(steps)
+    whole = loam.loam_odometry(xyzi, mask, cfg)
+    assert all(o.t.is_cuda and o.gn_iterations.is_cuda and o.factors.is_cuda
+               for o in outs)
+    assert torch.equal(torch.stack([o.t for o in outs]), whole.positions[1:])
+    assert torch.equal(state.n_keyframes, whole.n_keyframes)
+    assert all(1 <= int(o.gn_iterations) <= cfg.optimization_iterations
+               and int(o.factors) > 0 for o in outs)
+
+
 def test_batch_fusion_on_card_matches_cpu(cuda):
     """batch_fusion over a 12-keyframe GPS log (window 6: 6
     marginalisations, an IMU gap, a divergence reset; the log of

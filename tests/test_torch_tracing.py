@@ -10,7 +10,9 @@
   numbers the program's own counters give: one ``ndt.derivs`` an NDT
   evaluation, one ``ndt.sync`` a host sync and one ``ndt.gather`` a
   gather; one ``gicp.sync`` a GICP host sync, ``inner_iterations``
-  ``gicp.gn_step`` an outer iteration.
+  ``gicp.gn_step`` an outer iteration. A small ``loam_init`` plus
+  ``loam_step`` leaves two ``loam.factors`` and one ``loam.solve`` for
+  each of the step's Gauss-Newton iterations, inside ``loam.optimize``.
 - A span is a host op of the session, not a user annotation (which the
   profiler mirrors onto a device's timeline).
 - The calls' outputs are bit-identical with the session on and off.
@@ -27,8 +29,9 @@ torch.set_num_threads(1)  # the suite's workers share the cores
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from toyslam_tpu_torch.core.pointcloud import PointCloud  # noqa: E402
-from toyslam_tpu_torch.pipelines import odometry  # noqa: E402
+from toyslam_tpu_torch.pipelines import loam, odometry  # noqa: E402
 from toyslam_tpu_torch.registration import gicp  # noqa: E402
+from toyslam_tpu_torch.sim import loam_world  # noqa: E402
 from toyslam_tpu_torch.sim.urban_scans import spinning_lidar_scans  # noqa: E402
 from toyslam_tpu_torch.utils import profiling  # noqa: E402
 from toyslam_tpu_torch.utils.profiling import span, spanned  # noqa: E402
@@ -126,9 +129,41 @@ def _gicp():
     return run, parents, fixed
 
 
+def _loam():
+    scans, _ = loam_world.drive(2, 3, step_dtype=np.float64)
+    xyzi, mask = (torch.from_numpy(a) for a in loam_world.pack(scans))
+    cfg = loam.LoamConfig(n_rings=16, vertical_fov_deg=(-25.0, 5.0),
+                          max_edge_features=192, max_surf_features=384,
+                          map_capacity_edge=256, map_capacity_surf=1024)
+
+    def run():
+        state = loam.loam_init(PointCloud(xyzi[0], mask[0]), cfg)
+        state, out = loam.loam_step(state, PointCloud(xyzi[1], mask[1]), cfg)
+        counts = {"toyslam.loam.factors": 2 * cfg.optimization_iterations,
+                  "toyslam.loam.solve": cfg.optimization_iterations}
+        return ([*state.maps, out.q, out.t],
+                [bool(out.is_kf), int(out.gn_iterations), int(out.factors),
+                 int(state.n_keyframes)], counts)
+
+    parents = {"toyslam.loam.init": ROOT,
+               "toyslam.loam.step": ROOT,
+               "toyslam.loam.extract": {"toyslam.loam.init",
+                                        "toyslam.loam.step"},
+               "toyslam.loam.update_maps": {"toyslam.loam.init",
+                                            "toyslam.loam.step"},
+               "toyslam.loam.optimize": "toyslam.loam.step",
+               "toyslam.loam.factors": "toyslam.loam.optimize",
+               "toyslam.loam.solve": "toyslam.loam.optimize"}
+    fixed = {"toyslam.loam.init": 1, "toyslam.loam.step": 1,
+             "toyslam.loam.extract": 2, "toyslam.loam.update_maps": 2,
+             "toyslam.loam.optimize": 1}
+    return run, parents, fixed
+
+
 CASES = {"mapping": lambda: _mapping(0.0),
          "mapping_coarse": lambda: _mapping(0.9),
-         "gicp": _gicp}
+         "gicp": _gicp,
+         "loam": _loam}
 
 
 def _span_parents(spans):

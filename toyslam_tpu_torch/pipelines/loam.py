@@ -16,6 +16,15 @@ its ``lax.scan`` over scans a host loop, the keyframe choice a
 ``torch.where``. ``_knn`` ranks with ``torch.topk``, the exact
 counterpart of ``approx_max_k`` on the JAX package's CPU (its fallback
 there is exact; on a TPU it ranked at a recall of 0.95).
+
+The streaming form takes one scan a call, as the reference node's
+``TASLO::processCloud`` does: ``loam_init`` on the first scan, then
+``loam_step`` on each further one, carrying a ``LoamState``;
+``loam_odometry`` is that loop over a stack of scans. A step's spans
+(``utils/profiling.span``): ``loam.step`` holding ``loam.extract``,
+``loam.optimize`` (two ``loam.factors`` and one ``loam.solve`` an
+iteration) and ``loam.update_maps``; ``loam.init`` holds the first scan's
+extract and map update.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch
 from toyslam_tpu_torch.core import se3
 from toyslam_tpu_torch.core.pointcloud import PointCloud, voxel_downsample
 from toyslam_tpu_torch.ops.eigh3 import eigh3_soa
+from toyslam_tpu_torch.utils.profiling import span
 
 _BIG = 1.0e9
 _INT_MAX = 2**31 - 1
@@ -325,37 +335,57 @@ def optimize_pose(features: FeatureScan, maps: LoamMaps, q_init, t_init,
     once ``|dx| < 1e-6`` (``:1197-1211``). Here every one of
     ``optimization_iterations`` runs, and a device-side flag keeps the
     pose of the iteration that converged."""
+    q, t, _, _ = _optimize(features, maps, q_init, t_init, cfg)
+    return q, t
+
+
+def _optimize(features: FeatureScan, maps: LoamMaps, q_init, t_init,
+              cfg: LoamConfig):
+    """``optimize_pose`` with its two counters, 0-d int tensors on the
+    device: ``(q, t, gn_iterations, factors)``. ``gn_iterations`` is the
+    iteration (from 1) whose pose the done flag kept, or
+    ``optimization_iterations`` when it never fired; ``factors`` the edge
+    and surface factors that passed the gates in the last iteration."""
     dtype, dev = features.edge_xyz.dtype, features.edge_xyz.device
     damp = torch.eye(6, dtype=dtype, device=dev) * (cfg.system_noise
                                                     * 1000.0)
     q, t = q_init, t_init
     done = torch.zeros((), dtype=torch.bool, device=dev)
+    kept = torch.full((), cfg.optimization_iterations, dtype=torch.int32,
+                      device=dev)
+    factors = torch.zeros((), dtype=torch.int64, device=dev)
     for it in range(cfg.optimization_iterations):
         R = se3.quat_to_rot(q)
         edge_w = features.edge_xyz @ R.T + t
         surf_w = features.surf_xyz @ R.T + t
-        A1, b1, n1 = _accumulate_edge_factors(
-            edge_w, features.edge_mask, R, features.edge_xyz,
-            maps.edge_xyz, maps.edge_mask, cfg)
-        A2, b2, n2 = _accumulate_surf_factors(
-            surf_w, features.surf_mask, R, features.surf_xyz,
-            maps.surf_xyz, maps.surf_mask, cfg)
-        A = A1 + A2 + damp
-        b = b1 + b2
-        enough = (n1 + n2) >= 50  # (:1152)
-        # solve_ex checks nothing on the host; a non-finite step is
-        # skipped, as the reference `continue`s.
-        dx = torch.linalg.solve_ex(A, -b)[0]
-        do = enough & torch.isfinite(dx).all()
-        t_new = torch.where(do, t + dx[:3], t)
-        # axis-angle right update (:1178-1191) == boxplus for small dx
-        q_new = se3.quat_normalize(torch.where(
-            do, se3.quat_boxplus(q, dx[3:6]), q))
-        q = torch.where(done, q, q_new)
-        t = torch.where(done, t, t_new)
-        if it % 4 == 0:
-            done = done | (do & (torch.linalg.norm(dx) < 1e-6))
-    return q, t
+        with span("loam.factors"):
+            A1, b1, n1 = _accumulate_edge_factors(
+                edge_w, features.edge_mask, R, features.edge_xyz,
+                maps.edge_xyz, maps.edge_mask, cfg)
+        with span("loam.factors"):
+            A2, b2, n2 = _accumulate_surf_factors(
+                surf_w, features.surf_mask, R, features.surf_xyz,
+                maps.surf_xyz, maps.surf_mask, cfg)
+        with span("loam.solve"):
+            A = A1 + A2 + damp
+            b = b1 + b2
+            factors = n1 + n2
+            enough = factors >= 50  # (:1152)
+            # solve_ex checks nothing on the host; a non-finite step is
+            # skipped, as the reference `continue`s.
+            dx = torch.linalg.solve_ex(A, -b)[0]
+            do = enough & torch.isfinite(dx).all()
+            t_new = torch.where(do, t + dx[:3], t)
+            # axis-angle right update (:1178-1191) == boxplus for small dx
+            q_new = se3.quat_normalize(torch.where(
+                do, se3.quat_boxplus(q, dx[3:6]), q))
+            q = torch.where(done, q, q_new)
+            t = torch.where(done, t, t_new)
+            if it % 4 == 0:
+                fired = do & (torch.linalg.norm(dx) < 1e-6)
+                kept = torch.where(fired & ~done, it + 1, kept)
+                done = done | fired
+    return q, t, kept, factors
 
 
 def update_maps(maps: LoamMaps, features: FeatureScan, q, t,
@@ -391,6 +421,111 @@ def empty_maps(cfg: LoamConfig, dtype, device) -> LoamMaps:
     return LoamMaps(*side(cfg.map_capacity_edge), *side(cfg.map_capacity_surf))
 
 
+class LoamState(NamedTuple):
+    """What the odometry carries from one scan to the next: the maps, the
+    previous pose, the motion delta in the previous body frame, the last
+    keyframe's pose, the keyframe and near-static frame counts (0-d int32
+    on the device) and the index of the last scan (a host int: every
+    ``keyframe_interval``-th scan is a keyframe, decided on the host)."""
+
+    maps: LoamMaps
+    q_prev: torch.Tensor  # [4]
+    t_prev: torch.Tensor  # [3]
+    q_delta: torch.Tensor
+    t_delta: torch.Tensor
+    last_kf_q: torch.Tensor
+    last_kf_t: torch.Tensor
+    n_keyframes: torch.Tensor
+    static_frames: torch.Tensor
+    frame: int
+
+
+class LoamStepOut(NamedTuple):
+    """One step's pose, keyframe flag and counters, all on the device."""
+
+    q: torch.Tensor  # [4]
+    t: torch.Tensor  # [3]
+    is_kf: torch.Tensor  # 0-d bool
+    gn_iterations: torch.Tensor  # 0-d int32, see ``_optimize``
+    factors: torch.Tensor  # 0-d int64
+
+
+def loam_init(cloud: PointCloud, cfg: LoamConfig = LoamConfig()
+              ) -> LoamState:
+    """The state after the first scan: its features make the maps at the
+    identity pose, which is the first keyframe."""
+    with span("loam.init"):
+        dtype, dev = cloud.xyzi.dtype, cloud.xyzi.device
+        ident = se3.quat_identity(dtype, dev)
+        zero3 = torch.zeros(3, dtype=dtype, device=dev)
+        izero = torch.zeros((), dtype=torch.int32, device=dev)
+        with span("loam.extract"):
+            feats = organize_and_extract(cloud, cfg)
+        with span("loam.update_maps"):
+            maps = update_maps(empty_maps(cfg, dtype, dev), feats, ident,
+                               zero3, cfg)
+        return LoamState(maps, ident, zero3, ident, zero3, ident, zero3,
+                         izero + 1, izero, 0)
+
+
+def loam_step(state: LoamState, cloud: PointCloud,
+              cfg: LoamConfig = LoamConfig()):
+    """One further scan: constant-velocity prediction (``predictMotion``,
+    ``:630-656``), scan-to-map Gauss-Newton and the keyframed map update.
+    Returns ``(LoamState, LoamStepOut)``; makes no host
+    synchronisation."""
+    with span("loam.step"):
+        s = state
+        dtype, dev = cloud.xyzi.dtype, cloud.xyzi.device
+        frame = s.frame + 1
+        with span("loam.extract"):
+            feats = organize_and_extract(cloud, cfg)
+
+        # Constant-velocity prediction with the forced-motion nudge after
+        # near-static frames (:639-651): 5 cm forward plus the reference's
+        # (frame % 3 - 1) cm lateral.
+        inject = ((s.static_frames > cfg.forced_motion_frames)
+                  & (torch.linalg.norm(s.t_delta) < 0.02))
+        nudge = torch.eye(3, dtype=dtype, device=dev)
+        nudge = nudge[0] * 0.05 + nudge[1] * (0.01 * (frame % 3 - 1))
+        t_delta_eff = torch.where(inject, s.t_delta + nudge, s.t_delta)
+        q_pred = se3.quat_normalize(se3.quat_multiply(s.q_prev, s.q_delta))
+        t_pred = s.t_prev + se3.quat_rotate(s.q_prev, t_delta_eff)
+
+        with span("loam.optimize"):
+            q_new, t_new, gn_iterations, factors = _optimize(
+                feats, s.maps, q_pred, t_pred, cfg)
+
+        # Motion delta in the previous body frame
+        q_prev_inv = se3.quat_conjugate(s.q_prev)
+        q_delta = se3.quat_multiply(q_prev_inv, q_new)
+        t_delta = se3.quat_rotate(q_prev_inv, t_new - s.t_prev)
+        static_frames = torch.where(torch.linalg.norm(t_delta) < 0.02,
+                                    s.static_frames + 1,
+                                    torch.zeros_like(s.static_frames))
+
+        # Keyframe (:1626-1644): distance or rotation since the last
+        # keyframe, or every keyframe_interval-th frame.
+        dq = se3.quat_multiply(se3.quat_conjugate(s.last_kf_q), q_new)
+        angle = 2.0 * torch.arccos(torch.clamp(torch.abs(dq[0]), 0.0, 1.0))
+        dist = torch.linalg.norm(t_new - s.last_kf_t)
+        is_kf = (dist > cfg.keyframe_dist) | (angle > cfg.keyframe_angle)
+        if frame % cfg.keyframe_interval == 0:
+            is_kf = torch.ones_like(is_kf)
+
+        with span("loam.update_maps"):
+            maps_new = update_maps(s.maps, feats, q_new, t_new, cfg)
+            maps = LoamMaps(*(torch.where(is_kf, new, old)
+                              for new, old in zip(maps_new, s.maps)))
+        new_state = LoamState(
+            maps, q_new, t_new, q_delta, t_delta,
+            torch.where(is_kf, q_new, s.last_kf_q),
+            torch.where(is_kf, t_new, s.last_kf_t),
+            s.n_keyframes + is_kf.to(torch.int32), static_frames, frame)
+        return new_state, LoamStepOut(q_new, t_new, is_kf, gn_iterations,
+                                      factors)
+
+
 class LoamOutput(NamedTuple):
     positions: torch.Tensor  # [S, 3]
     quaternions: torch.Tensor  # [S, 4]
@@ -399,64 +534,14 @@ class LoamOutput(NamedTuple):
 
 def loam_odometry(scans_xyzi, scans_mask, cfg: LoamConfig = LoamConfig()):
     """The whole pipeline over ``scans_xyzi [S, N, 4]`` and ``scans_mask
-    [S, N]``: constant-velocity prediction (``predictMotion``,
-    ``:630-656``), scan-to-map Gauss-Newton and keyframed bounded maps.
-    Runs where the scans lie and makes no host synchronisation."""
-    dtype, dev = scans_xyzi.dtype, scans_xyzi.device
-    S = scans_xyzi.shape[0]
-    ident = se3.quat_identity(dtype, dev)
-    zero3 = torch.zeros(3, dtype=dtype, device=dev)
-    izero = torch.zeros((), dtype=torch.int32, device=dev)
-
-    feat0 = organize_and_extract(PointCloud(scans_xyzi[0], scans_mask[0]),
-                                 cfg)
-    maps = update_maps(empty_maps(cfg, dtype, dev), feat0, ident, zero3, cfg)
-    q_prev, t_prev = ident, zero3
-    q_delta, t_delta = ident, zero3
-    last_kf_q, last_kf_t = ident, zero3
-    n_kf = izero + 1
-    static_frames = izero
-    ts, qs = [zero3], [ident]
-    for frame in range(1, S):
-        feats = organize_and_extract(
-            PointCloud(scans_xyzi[frame], scans_mask[frame]), cfg)
-
-        # Constant-velocity prediction with the forced-motion nudge after
-        # near-static frames (:639-651): 5 cm forward plus the reference's
-        # (frame % 3 - 1) cm lateral.
-        inject = ((static_frames > cfg.forced_motion_frames)
-                  & (torch.linalg.norm(t_delta) < 0.02))
-        nudge = torch.eye(3, dtype=dtype, device=dev)
-        nudge = nudge[0] * 0.05 + nudge[1] * (0.01 * (frame % 3 - 1))
-        t_delta_eff = torch.where(inject, t_delta + nudge, t_delta)
-        q_pred = se3.quat_normalize(se3.quat_multiply(q_prev, q_delta))
-        t_pred = t_prev + se3.quat_rotate(q_prev, t_delta_eff)
-
-        q_new, t_new = optimize_pose(feats, maps, q_pred, t_pred, cfg)
-
-        # Motion delta in the previous body frame
-        q_prev_inv = se3.quat_conjugate(q_prev)
-        q_delta = se3.quat_multiply(q_prev_inv, q_new)
-        t_delta = se3.quat_rotate(q_prev_inv, t_new - t_prev)
-        static_frames = torch.where(torch.linalg.norm(t_delta) < 0.02,
-                                    static_frames + 1, izero)
-
-        # Keyframe (:1626-1644): distance or rotation since the last
-        # keyframe, or every keyframe_interval-th frame.
-        dq = se3.quat_multiply(se3.quat_conjugate(last_kf_q), q_new)
-        angle = 2.0 * torch.arccos(torch.clamp(torch.abs(dq[0]), 0.0, 1.0))
-        dist = torch.linalg.norm(t_new - last_kf_t)
-        is_kf = (dist > cfg.keyframe_dist) | (angle > cfg.keyframe_angle)
-        if frame % cfg.keyframe_interval == 0:
-            is_kf = torch.ones_like(is_kf)
-
-        maps_new = update_maps(maps, feats, q_new, t_new, cfg)
-        maps = LoamMaps(*(torch.where(is_kf, new, old)
-                          for new, old in zip(maps_new, maps)))
-        last_kf_q = torch.where(is_kf, q_new, last_kf_q)
-        last_kf_t = torch.where(is_kf, t_new, last_kf_t)
-        n_kf = n_kf + is_kf.to(torch.int32)
-        q_prev, t_prev = q_new, t_new
-        ts.append(t_new)
-        qs.append(q_new)
-    return LoamOutput(torch.stack(ts), torch.stack(qs), n_kf)
+    [S, N]``: ``loam_init`` on the first scan, ``loam_step`` on each
+    further one. Runs where the scans lie and makes no host
+    synchronisation."""
+    state = loam_init(PointCloud(scans_xyzi[0], scans_mask[0]), cfg)
+    ts, qs = [state.t_prev], [state.q_prev]
+    for frame in range(1, scans_xyzi.shape[0]):
+        state, out = loam_step(
+            state, PointCloud(scans_xyzi[frame], scans_mask[frame]), cfg)
+        ts.append(out.t)
+        qs.append(out.q)
+    return LoamOutput(torch.stack(ts), torch.stack(qs), state.n_keyframes)
