@@ -65,7 +65,11 @@ Phase 2 also checks the single-cloud API (``api_check``):
 odometry scan at the 0.3 m leaf, int for int against the same calls on
 the CPU and with as many voxels as that scan's downsample, ``ops/eigh3.
 eigh3`` on the covariances of that scan's map against a host f64 run,
-and ``runtime/native.available()``.
+and ``runtime/native.available()``; and ``eigh3_soa`` through its kernel
+against ``eigh3_soa_plain`` on the card bit for bit, one launch a call, at
+the main paths' shapes in f32 and f64 (``eigh3_phase``). The eigensolver's
+launches are counted on the main paths: one a map build (NDT path,
+mapping), two a ``gicp_align``, 20 a ``loam_step`` (phase 25).
 
 It checks that every align converged and improved on its identity guess
 against the generated ground truth, that the card's exact NDT align lands
@@ -284,6 +288,7 @@ EDGE_MOVE = 1e-4
 # deg, padded to the app's 65536 points, at LoamConfig()'s defaults; and
 # loam-bench, bench.py:317-356's 64 scans of 16 x 360 rays (seed 3).
 LOAM_SCANS = 64
+LOAM_EIGH3_A_SCAN = 20  # _neighbourhood: 2 fits x 10 GN iterations a step
 # The bit-identical rerun (and its host-sync count) covers the first scans
 # only: a cut in depth that pays for phase 29 (a full rerun took 15-17 s a
 # cell; the first scans' outputs do not depend on the later scans).
@@ -402,7 +407,7 @@ SHARD_TIMING_REPS = 3
 GLOO_TIMEOUT_S = 120
 NEW_PATH_KERNELS = ("ndt_terms_gathered", "ndt_gather_repack",
                     "ndt_terms_packed", "nearest_neighbor", "neg_dist_bf16",
-                    "gicp_terms", "gicp_update")
+                    "gicp_terms", "gicp_update", "eigh3")
 # The card's published peaks (H100 SXM at 700 W) for the bounds.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -429,6 +434,18 @@ NN_SRC = "toyslam_tpu_torch/csrc/nn_kernels.cu"
 GICP_SRC = "toyslam_tpu_torch/csrc/gicp_kernels.cu"
 RANK_SRC = "toyslam_tpu_torch/csrc/ranking_kernels.cu"
 GATHER_SRC = "toyslam_tpu_torch/csrc/gather_kernels.cu"
+EIGH3_SRC = "toyslam_tpu_torch/csrc/eigh3_kernels.cu"
+# The eigensolver against its plain version (phase 2): N 384 and 768 (a
+# LOAM edge and surface call), 32768 (a GICP covariance call), and the map
+# build's [B, V, 6] components; timed at EIGH3_TIMED in float32.
+EIGH3_SIZES = (384, 768, 32768)
+EIGH3_MAP_SHAPE = (4, 65536)
+EIGH3_TIMED = (768, 32768)
+# Rounded operations a matrix, counted from csrc/eigh3_kernels.cu: 50 a
+# rotation (3 divisions, 2 square roots) over 5 sweeps of 3, the 6
+# scaling divisions and the 3 products that undo the scale.
+EIGH3_FLOPS_PER_MATRIX = 50 * 15 + 6 + 3
+EIGH3_BYTES_PER_MATRIX = (6 + 12) * 4  # float32: six read, twelve written
 # D1's split modes against their plain version, of the largest |s.t|: the
 # same exact bf16 products, summed by the tensor core in place of f32 adds
 # in order (a bf16-level sum would miss by ~2^-9).
@@ -449,6 +466,8 @@ KERNELS = {  # name -> (source, Pallas kernel it replaces)
     "gicp_update": (GICP_SRC, "toyslam_tpu/registration/gicp.py:327-330"),
     "split_dot": (RANK_SRC, "benchmarks/diag_bf16_concat.py:37"),
     "lane_row_sum": (GATHER_SRC, "benchmarks/profile_gather_modes.py:136"),
+    # No Pallas kernel: the jnp Jacobi solver, which XLA fuses.
+    "eigh3": (EIGH3_SRC, "toyslam_tpu/ops/eigh3.py:29-86"),
 }
 # The CUDA function each kernel launches, as the profiler names it.
 CUDA_NAMES = {
@@ -460,6 +479,7 @@ CUDA_NAMES = {
     "gicp_terms": "gicp_terms_kernel",
     "gicp_update": "gicp_update_kernel",
     "lane_row_sum": "lane_row_sum_kernel",
+    "eigh3": "eigh3_kernel",
 }
 
 
@@ -740,7 +760,7 @@ def mapping_path(scans, scan_mask, xyzi, mask, cfg, odo_out, a_xyzi,
 
     from toyslam_tpu_torch.core import pcd_io, pointcloud
     from toyslam_tpu_torch.diag import ndt_odometry_edge
-    from toyslam_tpu_torch.ops import ndt_kernels
+    from toyslam_tpu_torch.ops import eigh3_kernels, ndt_kernels
     from toyslam_tpu_torch.pipelines import odometry
     from toyslam_tpu_torch.registration import ndt
     from toyslam_tpu_torch.utils import checkpoint, evalio
@@ -750,11 +770,12 @@ def mapping_path(scans, scan_mask, xyzi, mask, cfg, odo_out, a_xyzi,
 
     # 12. ndt_mapping at full width, counts reset just before it.
     ndt_kernels.reset_launch_counts()
+    eigh3_kernels.reset_launch_counts()
     t0 = time.perf_counter()
     mout = odometry.ndt_mapping(scans, scan_mask, MAP_CAPACITY, cfg)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    map_launch = dict(ndt_kernels.LAUNCHES)
+    map_launch = {**ndt_kernels.LAUNCHES, **eigh3_kernels.LAUNCHES}
     t0 = time.perf_counter()
     again = odometry.ndt_mapping(scans, scan_mask, MAP_CAPACITY, cfg)
     torch.cuda.synchronize()
@@ -766,6 +787,8 @@ def mapping_path(scans, scan_mask, xyzi, mask, cfg, odo_out, a_xyzi,
     check(map_launch["ndt_gather_repack"] > 0
           and map_launch["ndt_terms_packed"] > 0,
           "K2 or K3 was never launched in the mapping path")
+    check(map_launch["eigh3"] == S - 1, "the mapping path did not launch "
+                                        "eigh3 once a map build")
     check(bool(mout.odometry.converged.all()), "a mapping align did not "
                                                "converge")
     check(torch.equal(again.odometry.poses, mout.odometry.poses)
@@ -1269,7 +1292,7 @@ def align_app_phase(dev, a_xyzi, a_mask, a_gt):
     truth_t, _ = pose_diff(a_rel, np.eye(4))
     wants = {"ICP": ("nearest_neighbor",),
              "GICP": ("nearest_neighbor", "neg_dist_bf16", "gicp_terms",
-                      "gicp_update")}
+                      "gicp_update", "eigh3")}
     app_launch = dict.fromkeys(NEW_PATH_KERNELS, 0)
     for m in rep["methods"]:
         T = torch.tensor(m["transform"], dtype=torch.float32)
@@ -2399,6 +2422,7 @@ def loam_phase(dev, refs):
     import torch
 
     from toyslam_tpu_torch.core.pointcloud import PointCloud
+    from toyslam_tpu_torch.ops import eigh3_kernels
     from toyslam_tpu_torch.pipelines import loam
 
     card = card_line()
@@ -2411,11 +2435,13 @@ def loam_phase(dev, refs):
         x = torch.from_numpy(xyzi).to(dev)
         m = torch.from_numpy(mask).to(dev)
         cfg = loam_config(rays)
+        eigh3_kernels.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = loam.loam_odometry(x, m, cfg)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
+        e3 = eigh3_kernels.LAUNCHES["eigh3"]
         r = LOAM_RERUN_SCANS
         again, syncs = count_syncs(lambda: loam.loam_odometry(x[:r], m[:r],
                                                               cfg))
@@ -2430,7 +2456,8 @@ def loam_phase(dev, refs):
               f"points, capacity {mask.shape[1]}; {gen_s:.1f} s to ray-cast "
               f"on the host), f32 on the card: {sec:.2f} s, "
               f"{(LOAM_SCANS - 1) / sec:.2f} scans/s ((S-1)/sec; {card}), "
-              f"{int(out.n_keyframes)} keyframes; rerun over the first {r} "
+              f"{int(out.n_keyframes)} keyframes, {e3} eigh3 launches; "
+              f"rerun over the first {r} "
               f"scans bit-identical: {same}; synchronising calls by line "
               f"there: {syncs}")
         print(f"  {per_scan:.1f} device operations a scan "
@@ -2442,6 +2469,9 @@ def loam_phase(dev, refs):
                    and torch.isfinite(out.quaternions).all()),
               f"{name}: a pose is not finite")
         check(int(out.n_keyframes) >= 1, f"{name}: no keyframe")
+        check(e3 == LOAM_EIGH3_A_SCAN * (LOAM_SCANS - 1),
+              f"{name}: eigh3 launched {e3} times, not "
+              f"{LOAM_EIGH3_A_SCAN} a loam_step")
         check(same, f"{name}: a rerun differs")
         check(not syncs, f"{name}: loam_odometry synchronised with the host")
 
@@ -2502,7 +2532,8 @@ def loam_phase(dev, refs):
               f"{name}: the keyframe choices split at scan {first}, "
               f"{n - first} scans before the f64 run loses track")
         summary[name] = {"scans_per_s": (LOAM_SCANS - 1) / sec,
-                         "device_ops_per_scan": per_scan}
+                         "device_ops_per_scan": per_scan,
+                         "eigh3_launches": e3}
         if name == "loam-bench":
             bench = (x, m, cfg)
 
@@ -3421,6 +3452,91 @@ def api_check(scan, scan_mask, leaf, n_voxels, ndt_map, card):
           f"{time.perf_counter() - t0:.2f} s ({card})")
 
 
+def eigh3_phase(dev):
+    """Phase 2's check of the eigensolver: ``eigh3_soa`` through its kernel
+    against ``eigh3_soa_plain`` on the card, every eigenvalue and vector
+    entry bit for bit and each call one launch, at the main paths' shapes
+    (EIGH3_SIZES from stride-9 views of ``[N, 3, 3]``, as LOAM and GICP
+    pass them, and the map build's ``[B, V, 6]`` unbound at stride 6), in
+    float32 and float64, on ``tests/eigh3_cases.matrices`` (NaN and inf
+    rows among them); each rerun bit-identical. Then, in float32 at
+    EIGH3_TIMED, the kernel's and the plain version's times and the
+    kernel's bound. Returns the kernels line's entries."""
+    import torch
+
+    from toyslam_tpu_torch.ops import eigh3, eigh3_kernels
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import eigh3_cases
+
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+    def flat(out):
+        ev, vec = out
+        return torch.stack([t.reshape(-1) for t in (*ev, *vec)])
+
+    def layouts(dtype):
+        for n in EIGH3_SIZES:
+            a = eigh3_cases.matrices(n, dtype, dev, seed=n)
+            yield f"N {n} at stride 9", 9, eigh3_cases.components(a)
+        b, v = EIGH3_MAP_SHAPE
+        a = eigh3_cases.matrices(b * v, dtype, dev, seed=v)
+        yield (f"[{b}, {v}, 6] at stride 6", 6,
+               eigh3_cases.map_components(a, b))
+
+    t0 = time.perf_counter()
+    max_err, rows = 0.0, []
+    for dtype in (torch.float32, torch.float64):
+        for label, stride, comps in layouts(dtype):
+            check(all(eigh3_kernels.flat_stride(c) == stride for c in comps),
+                  f"eigh3 {label}: a component is not at stride {stride}")
+            eigh3_kernels.reset_launch_counts()
+            got = flat(eigh3.eigh3_soa(*comps))
+            again = flat(eigh3.eigh3_soa(*comps))
+            check(eigh3_kernels.LAUNCHES["eigh3"] == 2,
+                  f"eigh3 {label}: {eigh3_kernels.LAUNCHES} for two calls")
+            want = flat(eigh3.eigh3_soa_plain(*comps))
+            check(torch.equal(got.view(ints[dtype]), want.view(ints[dtype])),
+                  f"eigh3 {label} {dtype}: the kernel is not bit-identical "
+                  f"to its plain version")
+            check(torch.equal(got.view(ints[dtype]), again.view(ints[dtype])),
+                  f"eigh3 {label} {dtype}: a rerun differs")
+            both = torch.isfinite(got) & torch.isfinite(want)
+            max_err = max(max_err, float((got - want)[both].abs().max()))
+            rows.append(f"{label} {str(dtype)[6:]} "
+                        f"({int((~torch.isfinite(want)).any(0).sum())} "
+                        f"matrices with a NaN or inf output)")
+    print(f"phase 2 eigh3 vs plain: bit-identical, one launch a call, rerun "
+          f"bit-identical: {'; '.join(rows)} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    card = card_line()
+    sizes = {}
+    for n in EIGH3_TIMED:
+        comps = eigh3_cases.components(
+            eigh3_cases.matrices(n, torch.float32, dev, seed=n))
+        b_ms, b_by = bound(n * EIGH3_BYTES_PER_MATRIX,
+                           n * EIGH3_FLOPS_PER_MATRIX)
+        sizes[n] = {
+            "ms": cuda_ms(lambda: eigh3.eigh3_soa(*comps)),
+            "plain_ms": cuda_ms(lambda: eigh3.eigh3_soa_plain(*comps)),
+            "device_ms": device_ms_per_launch(
+                lambda: eigh3.eigh3_soa(*comps), CUDA_NAMES["eigh3"]),
+            "bound_ms": b_ms, "bound_by": b_by}
+        r = sizes[n]
+        print(f"  eigh3 at N {n} ({card}), CUDA events, mean of {REPS} after "
+              f"warm-up: kernel {r['ms']:.4f} ms (device "
+              f"{r['device_ms']:.4f} ms a launch), plain {r['plain_ms']:.4f} "
+              f"ms, bound {b_ms:.6f} ms ({b_by}; "
+              f"{EIGH3_BYTES_PER_MATRIX} bytes and {EIGH3_FLOPS_PER_MATRIX} "
+              f"operations a matrix; {b_ms / r['device_ms']:.1%} of the "
+              f"device time reached)")
+    top = sizes[max(EIGH3_TIMED)]
+    return {"max_abs_err": max_err, "ms": (top["ms"], top["plain_ms"]),
+            "bound": (top["bound_ms"], top["bound_by"]),
+            "device_ms": top["device_ms"], "sizes": sizes}
+
+
 def main() -> int:
     import torch
 
@@ -3433,7 +3549,8 @@ def main() -> int:
     from toyslam_tpu_torch.diag import ndt_eval_ops
     from toyslam_tpu_torch.diag import ndt_odometry_edge
     from toyslam_tpu_torch.diag import profile_gather_modes
-    from toyslam_tpu_torch.ops import _cuda, gather_kernels, gicp_kernels
+    from toyslam_tpu_torch.ops import _cuda, eigh3_kernels, gather_kernels
+    from toyslam_tpu_torch.ops import gicp_kernels
     from toyslam_tpu_torch.ops import ndt_kernels, nn_kernels, ranking_kernels
     from toyslam_tpu_torch.pipelines import odometry
     from toyslam_tpu_torch.registration import gicp, icp, ndt
@@ -3454,7 +3571,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _cuda.build(ndt_kernels.SOURCE, nn_kernels.SOURCE,
                        gicp_kernels.SOURCE, ranking_kernels.SOURCE,
-                       gather_kernels.SOURCE)
+                       gather_kernels.SOURCE, eigh3_kernels.SOURCE)
     print(f"phase 1 build: {time.perf_counter() - t0:.2f} s "
           f"({', '.join(lib.name for lib in libs)})")
     for lib in libs:
@@ -3503,6 +3620,7 @@ def main() -> int:
     m = ndt.build_ndt_map(pointcloud.pad_to(ds[0], cfg.work_capacity),
                           cfg.ndt)
     api_check(scans[0], scan_mask[0], cfg.scan_leaf, counts[0], m, card)
+    e3 = eigh3_phase(dev)
     d1, d2, _ = ndt.gauss_coefficients(cfg.ndt.resolution,
                                        cfg.ndt.outlier_ratio)
     ev = ndt._Evaluator(m, src.xyzi[:, :3], src.mask, cfg.ndt.resolution,
@@ -3544,6 +3662,7 @@ def main() -> int:
 
     # NDT path: counts reset, then the exact align and the odometry.
     ndt_kernels.reset_launch_counts()
+    eigh3_kernels.reset_launch_counts()
     a_src = [pointcloud.voxel_downsample(pointcloud.PointCloud(
         torch.from_numpy(a_xyzi[k]).to(dev),
         torch.from_numpy(a_mask[k]).to(dev)), 0.1) for k in range(2)]
@@ -3583,9 +3702,13 @@ def main() -> int:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = dict(ndt_kernels.LAUNCHES)
-    print(f"launches in the NDT path: {launches}")
+    ndt_eigh3 = eigh3_kernels.LAUNCHES["eigh3"]
+    print(f"launches in the NDT path: {launches}; eigh3 {ndt_eigh3} (one a "
+          f"map build: the exact align's and {ODO_SCANS - 1} odometry steps')")
     check(all(v > 0 for v in launches.values()),
           "a kernel of the NDT path was never launched")
+    check(ndt_eigh3 == ODO_SCANS, "the NDT path did not launch eigh3 once a "
+                                  "map build")
     check(bool(out.converged.all()), "an odometry align did not converge")
     poses = out.poses.double().numpy()
     check(np.isfinite(poses).all(), "non-finite odometry poses")
@@ -3878,15 +4001,20 @@ def main() -> int:
     # Registration path: counts reset, then one GICP and one ICP align.
     nn_kernels.reset_launch_counts()
     gicp_kernels.reset_launch_counts()
+    eigh3_kernels.reset_launch_counts()
     g_res = gicp.gicp_align(source, target, None, gcfg)
-    g_launch = {**nn_kernels.LAUNCHES, **gicp_kernels.LAUNCHES}
+    g_launch = {**nn_kernels.LAUNCHES, **gicp_kernels.LAUNCHES,
+                **eigh3_kernels.LAUNCHES}
     i_res = icp.icp_align(source, target)
-    reg_launches = {**nn_kernels.LAUNCHES, **gicp_kernels.LAUNCHES}
+    reg_launches = {**nn_kernels.LAUNCHES, **gicp_kernels.LAUNCHES,
+                    **eigh3_kernels.LAUNCHES}
     print(f"phase 8 registration path (0.1 m pair, capacity {REG_CAPACITY}):")
     print(f"  launches: gicp_align {g_launch}; with icp_align "
           f"{reg_launches}")
     check(all(v > 0 for v in reg_launches.values()),
           "a kernel of the registration path was never launched")
+    check(g_launch["eigh3"] == 2, "gicp_align did not launch eigh3 once for "
+                                  "each cloud's covariances")
     truth_t, truth_r = pose_diff(a_rel, np.eye(4))
     for name, r in (("gicp_align", g_res), ("icp_align", i_res)):
         e_t, e_r = pose_diff(r.transform, a_rel)
@@ -4230,7 +4358,7 @@ def main() -> int:
     uwb_phase()
     fleet = fleet_phase(dev, tick_ms)
     golden_phase()
-    loam_phase(dev, refs)
+    loam_summary = loam_phase(dev, refs)
     smoother_phase(dev, refs)
     gnss_phase(dev, gnss_ref)
     bag_launch = bag_phase(dev, gt, cfg, bag_job, app_files)
@@ -4239,6 +4367,12 @@ def main() -> int:
     shard, shard_launch = sharded_align_phase(dev, amap, a_src[1])
     print(f"phase 29: {time.perf_counter() - t0:.1f} s; the whole script "
           f"{time.perf_counter() - script_t0:.1f} s")
+
+    err["eigh3"] = e3["max_abs_err"]
+    ms["eigh3"] = e3["ms"]
+    bounds["eigh3"] = e3["bound"]
+    library["eigh3"] = None
+    launch_dev_ms["eigh3"] = e3["device_ms"]
 
     card = card_line()
     print(card)
@@ -4254,6 +4388,11 @@ def main() -> int:
         k4_counts)
     kernels[list(KERNELS).index("gicp_terms")].update(k6_extra)
     kernels[list(KERNELS).index("lane_row_sum")]["cold_ms"] = d2_cold_ms
+    kernels[list(KERNELS).index("eigh3")].update(
+        sizes=e3["sizes"], ndt_path_launches=ndt_eigh3,
+        mapping_launches=map_launch["eigh3"],
+        loam_launches={k: v["eigh3_launches"]
+                       for k, v in loam_summary.items()})
     for name in ndt_names:  # the mapping path's own run
         kernels[list(KERNELS).index(name)]["mapping_launches"] = (
             map_launch[name])

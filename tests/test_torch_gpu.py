@@ -55,6 +55,12 @@ solve (the smoke run reads 2.6e-4 m at gnss-1024); RAIM and the urban
 simulator in f64 on the card match the host within 1e-6 m with the same
 decisions and classes; ``convert``'s GNSS helpers and ``store_init`` put
 their tensors on the card by default.
+The eigensolver's kernel (``ops/eigh3_kernels``): ``eigh3_soa`` on the
+card bit-identical to ``eigh3_soa_plain`` on the card in f32 and f64, NaN
+and inf rows included, from the callers' strided views and from views it
+copies, at N from 1 to 4 x 65536, one device operation a call; LOAM's
+step, a GICP align and a mapping step bit-identical to their runs with
+the plain version, 20, 2 and 1 launches a call, no component copied.
 ``runtime/loader.ScanStream`` on the card (pinned ring, side-stream
 copies, an event and ``record_stream``) yields every scan bit-identical
 to the packed stack, with a consumer stream of its own that spins before
@@ -769,14 +775,23 @@ def test_lane_row_sum_matches_plain_on_card(cuda):
         gather_kernels.lane_row_sum(ids.long(), table)
 
 
-def _one_device_operation(fn, kernel, calls=20):
+def _one_device_operation(fn, kernel, calls=20, sessions=3):
     """fn() is one device operation, the kernel named ``kernel``: ``calls``
     calls under torch.profiler are ``calls`` launches of it and nothing
     else (``gicp_call_ops.profiled`` primes the session and lets its last
-    records arrive before it stops)."""
-    prof = gicp_call_ops.profiled(fn, calls)
-    assert prof["ops"] == calls, prof["by_name"]
-    assert all(kernel in k for k in prof["by_name"]), prof["by_name"]
+    records arrive before it stops). Every session shows the kernel alone
+    and at most ``calls`` times; one that shows it fewer times lost events
+    (the card's profiler drops some, as ``portbench/trace.py`` says) and is
+    run again, up to ``sessions`` in all."""
+    seen = []
+    for _ in range(sessions):
+        prof = gicp_call_ops.profiled(fn, calls)
+        assert all(kernel in k for k in prof["by_name"]), prof["by_name"]
+        assert prof["ops"] <= calls, prof["by_name"]
+        seen.append(prof["ops"])
+        if prof["ops"] == calls:
+            break
+    assert seen[-1] == calls, seen
 
 
 def test_spans_share_the_cards_clock(cuda):
@@ -1344,3 +1359,127 @@ def test_sharded_align_on_card_matches_ndt_align(cuda, clouds):
             assert counts["ndt_terms_gathered"] == 0
         else:
             assert counts["ndt_terms_gathered"] == 4 * out.evaluations
+
+
+EIGH3_SIZES = (1, 384, 768, 32768, 4 * 65536)
+
+
+def _eigh3_layouts(a):
+    """The six components of ``a [N, 3, 3]`` as GICP's and LOAM's
+    covariances give them (stride-9 views), as the map build's
+    ``unbind(-1)`` of a ``[B, V, 6]`` tensor gives them (stride 6), and
+    (N even) as views of ``[N / 2, 2, 3, 3]`` with its first two axes
+    swapped, whose elements lie at no one stride: the wrapper copies
+    them."""
+    from eigh3_cases import components, map_components
+
+    n = a.shape[0]
+    b = 2 if n % 2 == 0 else 1
+    out = {9: components(a), 6: map_components(a, b)}
+    if b == 2:
+        out[None] = components(a.reshape(2, -1, 3, 3).transpose(0, 1))
+    return out
+
+
+def _eigh3_bits(ts):
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return torch.stack([t.reshape(-1) for t in ts]).view(ints[ts[0].dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", EIGH3_SIZES)
+def test_eigh3_kernel_bit_identical_on_card(cuda, n, dtype):
+    """``eigh3_soa`` on the card (the kernel) against ``eigh3_soa_plain``
+    on the card: every eigenvalue and eigenvector entry bit for bit, the
+    edge rows of ``tests/eigh3_cases.matrices`` (NaN and inf included) and
+    generated ones, from stride-9 and stride-6 views and from views the
+    wrapper copies; one launch a call."""
+    from eigh3_cases import matrices
+    from toyslam_tpu_torch.ops import eigh3, eigh3_kernels
+
+    a = matrices(n, dtype, cuda, seed=n)
+    for name, comps in _eigh3_layouts(a).items():
+        assert n == 1 or all(eigh3_kernels.flat_stride(c) == name
+                             for c in comps)
+        eigh3_kernels.reset_launch_counts()
+        ev, vec = eigh3.eigh3_soa(*comps)
+        assert eigh3_kernels.LAUNCHES == {"eigh3": 1}
+        ev_p, vec_p = eigh3.eigh3_soa_plain(*comps)
+        assert ev[0].shape == comps[0].shape and ev[0].dtype == dtype
+        assert ev[0].is_cuda
+        assert torch.equal(_eigh3_bits(ev), _eigh3_bits(ev_p)), name
+        assert torch.equal(_eigh3_bits(vec), _eigh3_bits(vec_p)), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_eigh3_one_device_operation_a_call_on_card(cuda, dtype):
+    """An ``eigh3_soa`` call on the card is one device operation, the
+    kernel's: the wrapper's views and output allocation launch nothing."""
+    from eigh3_cases import components, matrices
+    from toyslam_tpu_torch.ops import eigh3
+
+    comps = components(matrices(768, dtype, cuda))
+    _one_device_operation(lambda: eigh3.eigh3_soa(*comps), "eigh3_kernel")
+
+
+def _eigh3_runs(cuda, clouds, mapping_scans):
+    """Each caller of ``eigh3_soa`` once on the card, returning its outputs
+    as one tensor: (run, eigh3 launches a call)."""
+    from toyslam_tpu_torch.pipelines import loam
+    from toyslam_tpu_torch.sim import loam_world
+
+    def loam_step():
+        scans, _ = loam_world.drive(2, 3, step_dtype=np.float64)
+        xyzi, mask = (torch.from_numpy(a).to(cuda)
+                      for a in loam_world.pack(scans))
+        cfg = loam.LoamConfig(n_rings=16, vertical_fov_deg=(-25.0, 5.0))
+        state = loam.loam_init(pointcloud.PointCloud(xyzi[0], mask[0]), cfg)
+        state, out = loam.loam_step(
+            state, pointcloud.PointCloud(xyzi[1], mask[1]), cfg)
+        return torch.cat([out.q, out.t, state.maps.edge_xyz.reshape(-1),
+                          state.maps.surf_xyz.reshape(-1)])
+
+    def gicp_align():
+        src, tgt = (pointcloud.PointCloud(*(t.to(cuda) for t in c))
+                    for c in (clouds[1], clouds[0]))
+        return gicp.gicp_align(src, tgt).transform.reshape(-1)
+
+    def mapping_step():
+        xyzi, mask = mapping_scans
+        cfg = odometry.OdometryConfig(work_capacity=8192)
+        state = odometry.mapping_init(xyzi[0], mask[0], 8192, cfg)
+        state, out = odometry.mapping_step(state, xyzi[1], mask[1], cfg)
+        return torch.cat([out[0].reshape(-1).to(cuda),
+                          state.map_cloud.xyzi.reshape(-1)])
+
+    return {"loam_step": (loam_step, 20), "gicp_align": (gicp_align, 2),
+            "mapping_step": (mapping_step, 1)}
+
+
+@pytest.mark.parametrize("caller", ["loam_step", "gicp_align",
+                                    "mapping_step"])
+def test_eigh3_callers_on_card_equal_the_plain_route(cuda, clouds,
+                                                     mapping_scans, caller):
+    """``loam_step``, ``gicp_align`` and ``mapping_step`` on the card give
+    the bits of the same run with the eigensolver's kernel replaced by
+    ``eigh3_soa_plain``, launching it 20, 2 and 1 times a call, each
+    component read in place (at one stride, no copy)."""
+    from toyslam_tpu_torch.ops import eigh3, eigh3_kernels
+
+    run, calls = _eigh3_runs(cuda, clouds, mapping_scans)[caller]
+    kernel, strides = eigh3_kernels.eigh3_soa_cuda, []
+
+    def spied(*args, **kw):
+        strides.extend(eigh3_kernels.flat_stride(c) for c in args[:6])
+        return kernel(*args, **kw)
+
+    eigh3_kernels.reset_launch_counts()
+    with mock.patch.object(eigh3_kernels, "eigh3_soa_cuda", spied):
+        got = run()
+    assert eigh3_kernels.LAUNCHES == {"eigh3": calls}
+    assert len(strides) == 6 * calls and None not in strides, strides
+    with mock.patch.object(eigh3_kernels, "eigh3_soa_cuda",
+                           eigh3.eigh3_soa_plain):
+        want = run()
+    assert eigh3_kernels.LAUNCHES == {"eigh3": calls}
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

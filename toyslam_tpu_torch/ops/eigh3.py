@@ -6,11 +6,17 @@ tensors, then an ascending sort by a 3-element network. Kept as the JAX
 package's algorithm (not ``torch.linalg.eigh``) so that the NDT map's
 eigenvalue inflation sees the same eigenpairs. ``eigh3_soa`` takes the six
 components (the map build's layout); ``eigh3`` is its ``[..., 3, 3]`` form.
+
+``eigh3_soa`` takes CPU tensors to ``eigh3_soa_plain`` and CUDA tensors to
+one launch of the hand-written kernel of ``ops/eigh3_kernels``, which gives
+the plain version's bits there; there is no fallback.
 """
 
 from __future__ import annotations
 
 import torch
+
+from toyslam_tpu_torch.ops import _cuda, eigh3_kernels
 
 
 def _rot_coeffs(app, aqq, apq):
@@ -30,6 +36,13 @@ def eigh3_soa(a00, a01, a02, a11, a12, a22, sweeps: int = 5):
     Returns (evals: 3-tuple ascending, evecs: 9-tuple row-major
     ``v[i][j]`` = component i of eigenvector j).
     """
+    if _cuda.on_cpu("eigh3", a00, a01, a02, a11, a12, a22):
+        return eigh3_soa_plain(a00, a01, a02, a11, a12, a22, sweeps)
+    return eigh3_kernels.eigh3_soa_cuda(a00, a01, a02, a11, a12, a22, sweeps)
+
+
+def eigh3_soa_plain(a00, a01, a02, a11, a12, a22, sweeps: int = 5):
+    """``eigh3_soa`` in PyTorch ops, on any device and float dtype."""
     one = torch.ones_like(a00)
     zero = torch.zeros_like(a00)
     scale = torch.stack([a.abs() for a in (a00, a11, a22, a01, a02, a12)]
