@@ -647,25 +647,27 @@ def host_wait_ms(fn, spin_ms=50.0):
     return waited
 
 
-def hash_check(label, ev, params):
-    """K1's neighbour hash on the card (its check export) against the plain
-    hash: the in-bounds & mask flag equal on every pair, slot and voxel id
-    equal where it holds."""
-    import torch
+def one_lane(ndt_map, src, cfg, p):
+    """The NDT evaluator of one source at one lane (``ndt._single_lane``)
+    and its one-lane operands at host pose p: the evaluator, its points
+    [3, N], mask, offsets, 1 / leaf and K as ``one``, the [83] parameters
+    and the plain neighbour hash (h, nvid, okm) there."""
+    from types import SimpleNamespace
 
     from toyslam_tpu_torch.ops import ndt_kernels
+    from toyslam_tpu_torch.registration import ndt
 
-    m = ev.map
-    args = (params, ev.xyz, ev.mask, m.min_b, m.div, m.hash_table.shape[0],
-            ev.inv_leaf, ev.offsets)
-    h, nvid, okm = ndt_kernels.ndt_neighbor_hash(*args)
-    ph, pnvid, pokm = ndt_kernels.ndt_neighbor_hash_plain(*args)
-    same = (torch.equal(okm, pokm) and torch.equal(h[okm], ph[okm])
-            and torch.equal(nvid[okm], pnvid[okm]))
-    print(f"  K1 hash vs plain hash ({label}): okm equal on all "
-          f"{okm.numel()} pairs ({int(okm.sum())} in bounds and unmasked), h "
-          f"and nvid equal where it holds: {same}")
-    check(same, f"K1's hash differs from the plain hash ({label})")
+    d1, d2, _ = ndt.gauss_coefficients(cfg.resolution, cfg.outlier_ratio)
+    ev = ndt._single_lane(ndt_map, src.xyzi[:, :3], src.mask,
+                          cfg.resolution, ndt._OFFSETS[cfg.search_method],
+                          d1, d2)
+    one = SimpleNamespace(xyz=ev.xyz[0], mask=ev.mask[0], offsets=ev.offsets,
+                          inv_leaf=ev.inv_leaf, K=ev.K)
+    params = ev.params([p])[0]
+    hashed = ndt_kernels.ndt_neighbor_hash_plain(
+        params, one.xyz, one.mask, ndt_map.min_b, ndt_map.div,
+        ndt_map.hash_table.shape[0], ev.inv_leaf, ev.offsets)
+    return ev, one, params, hashed
 
 
 def terms_err(got, want, groups):
@@ -1181,8 +1183,8 @@ def checked_plain_route(calls):
             # (``ndt_terms_*_lanes_plain``, bit for bit); the terms also
             # give each sum's magnitudes, as ``kernel_err`` takes them.
             got = kernel(*args)
-            ones = [lane_row_args(name, args, y, b)
-                    for y, b in enumerate(args[-1].tolist())]
+            ones = [lane_row_args(name, args, y, b) for y, b in
+                    enumerate(ndt_kernels.lane_list(args[1], args[-1]))]
             terms = [ndt_odometry_edge._pair_terms(name, one) for one in ones]
             want = torch.stack([t.sum(1) for t in terms])
             alone = torch.stack([one_lane(*one) for one in ones])
@@ -1254,7 +1256,7 @@ def align_app_kernels(s_ds, t_ds):
         check(d_t <= tol_m and d_r <= tol_rad,
               f"align app kernels: {method}'s kernel and plain routes "
               "disagree")
-        check(wants.get(method, {"ndt_terms_gathered"}) <= set(seen),
+        check(wants.get(method, {"ndt_terms_gathered_lanes"}) <= set(seen),
               f"align app kernels: {method} did not reach its kernels")
         check(all(v[2] for v in seen.values()),
               f"align app kernels: a kernel of {method} disagrees with its "
@@ -1597,17 +1599,18 @@ def lane_kernel_args(m, src, cfg, poses):
     B = src.mask.shape[0]
     d1, d2, _ = ndt.gauss_coefficients(cfg.resolution, cfg.outlier_ratio)
     offsets = ndt._OFFSETS[cfg.search_method]
-    evs = [ndt._Evaluator(ndt.NDTMap(*(f[b] for f in m)), src.xyzi[b, :, :3],
-                          src.mask[b], cfg.resolution, offsets, d1, d2)
-           for b in range(B)]
-    params = torch.stack([ev.params(p) for ev, p in zip(evs, poses)])
-    hashed = [ev.neighbor_hash(params[b]) for b, ev in enumerate(evs)]
+    ev = ndt._LaneEvaluator(m, src.xyzi, src.mask, cfg.resolution, offsets,
+                            d1, d2)
+    params = ev.params(list(poses))
+    xyz = ev.xyz
+    hashed = [ndt_kernels.ndt_neighbor_hash_plain(
+        params[b], xyz[b], src.mask[b], m.min_b[b], m.div[b], ev.cap,
+        ev.inv_leaf, ev.offsets) for b in range(B)]
     stats = torch.stack([ndt_kernels.ndt_gather_repack_plain(
         m.hash_table[b], *hashed[b]) for b in range(B)])
-    xyz = torch.stack([ev.xyz for ev in evs])
     ids = torch.arange(B, dtype=torch.int32, device=xyz.device)
-    k1 = (params, xyz, src.mask, m.hash_table, m.min_b, m.div, evs[0].inv_leaf,
-          evs[0].offsets, ids)
+    k1 = (params, xyz, src.mask, m.hash_table, m.min_b, m.div, ev.inv_leaf,
+          ev.offsets, ids)
     k3 = (params, xyz, stats, ids)
     counts = []
     for b in range(B):
@@ -3621,23 +3624,18 @@ def main() -> int:
                           cfg.ndt)
     api_check(scans[0], scan_mask[0], cfg.scan_leaf, counts[0], m, card)
     e3 = eigh3_phase(dev)
-    d1, d2, _ = ndt.gauss_coefficients(cfg.ndt.resolution,
-                                       cfg.ndt.outlier_ratio)
-    ev = ndt._Evaluator(m, src.xyzi[:, :3], src.mask, cfg.ndt.resolution,
-                        ndt._OFFSETS[cfg.ndt.search_method], d1, d2)
     rel = np.linalg.inv(gt[0]) @ gt[1]
     p = ndt.se3.matrix_to_pose6(torch.from_numpy(rel)).numpy().astype(
         np.float32)
-    params = ev.params(p)
-    h, nvid, okm = ev.neighbor_hash(params)
+    lane, ev, params, (h, nvid, okm) = one_lane(m, src, cfg.ndt, p)
     table = m.hash_table
     k1_args = (params, ev.xyz, ev.mask, table, m.min_b, m.div, ev.inv_leaf,
                ev.offsets)
     print(f"phase 2 shapes: N {ev.xyz.shape[1]} K {ev.K} pairs {h.numel()} "
           f"table {tuple(table.shape)}")
-    hash_check("odometry scan", ev, params)
     err = {}
     stats = ndt_kernels.ndt_gather_repack(table, h, nvid, okm)
+    lane.stats = stats[None]  # the frozen evaluation of phase 6
     stats_plain = ndt_kernels.ndt_gather_repack_plain(table, h, nvid, okm)
     torch.cuda.synchronize()
     check(torch.equal(stats.view(torch.int32), stats_plain.view(torch.int32)),
@@ -3759,10 +3757,8 @@ def main() -> int:
     print("phase 5 determinism: rerun poses bit-identical")
 
     # K1 against its plain version at the shape the exact align gives it.
-    aev = ndt._Evaluator(amap, a_src[1].xyzi[:, :3], a_src[1].mask,
-                         acfg.resolution, ndt._OFFSETS[acfg.search_method],
-                         d1, d2)
-    aparams = aev.params(res.pose6.numpy())
+    alane, aev, aparams, ah = one_lane(amap, a_src[1], acfg,
+                                       res.pose6.numpy())
     ak1 = (aparams, aev.xyz, aev.mask, amap.hash_table, amap.min_b, amap.div,
            aev.inv_leaf, aev.offsets)
     rel_err, abs_err = terms_err(ndt_kernels.ndt_terms_gathered(*ak1),
@@ -3779,7 +3775,6 @@ def main() -> int:
 
     # 6. NDT timings, K1's hash at the exact-align shape, the bounds and the
     #    device operations of one evaluation.
-    hash_check("exact-align shape", aev, aparams)
     card = card_line()
     ms = {
         "ndt_gather_repack": (
@@ -3796,7 +3791,6 @@ def main() -> int:
     ms["ndt_terms_gathered"] = (
         cuda_ms(lambda: ndt_kernels.ndt_terms_gathered(*ak1)),
         cuda_ms(lambda: ndt_kernels.ndt_terms_gathered_plain(*ak1)))
-    ah = aev.neighbor_hash(aparams)
     akn = ah[0].numel()
     kn = h.numel()
     # The least work: K1 hashes every valid point (the transform), reads
@@ -3883,11 +3877,13 @@ def main() -> int:
               f"flops on every pair, every input in full) {b_ms:.4f} ms "
               f"({b_by}; {b_ms / launch_dev_ms[name]:.1%})")
     evals = {"exact (K1)": ndt_eval_ops.profile_evaluation(
-                 aev, res.pose6.numpy()),
-             "frozen (K3)": ndt_eval_ops.profile_evaluation(ev, p, stats)}
+                 alane, res.pose6.numpy()),
+             "frozen (K3)": ndt_eval_ops.profile_evaluation(lane, p,
+                                                            frozen=True)}
     for (label, r), name in zip(evals.items(), ("ndt_terms_gathered",
                                                  "ndt_terms_packed")):
-        print(f"  one {label} evaluation, _Evaluator.derivs under "
+        print(f"  one {label} evaluation, _LaneEvaluator.derivs at one lane "
+              f"under "
               f"torch.profiler: {r['ops']} device operations, "
               f"{r['device_ms']:.4f} ms device time: {r['by_name']}")
         launched = sum(c for key, c in r["by_name"].items()

@@ -274,30 +274,48 @@ def ndt_pair():
 
 
 @pytest.mark.parametrize("frozen", [False, True])
-def test_plain_route_holds_kernels_at_each_evaluation(ndt_pair, frozen):
+@pytest.mark.parametrize("lanes", [1, 2])
+def test_plain_route_holds_kernels_at_each_evaluation(ndt_pair, lanes,
+                                                       frozen):
     """``plain_route(errors)`` runs the plain versions and, at every K1 or
-    K3 evaluation, the kernel wrapper on the same inputs (on CPU tensors
-    the wrapper is the plain version, so every error is 0, also against
-    the terms' magnitudes); the wrappers are restored after the block."""
+    K3 evaluation (a row of a lane call is one), the kernel wrapper on the
+    same inputs (on CPU tensors the wrapper is the plain version, so every
+    error is 0, also against the terms' magnitudes); the wrappers are
+    restored after the block. One lane is ``ndt_align``, two a lockstep
+    ``ndt_align_lanes`` (the odometry's aligns); both run the lane
+    wrappers."""
+    from toyslam_tpu_torch.core.pointcloud import PointCloud
     from toyslam_tpu_torch.ops import ndt_kernels
     from toyslam_tpu_torch.registration import ndt
 
-    wrappers = (ndt_kernels.ndt_terms_gathered, ndt_kernels.ndt_gather_repack,
-                ndt_kernels.ndt_terms_packed)
+    names = ("ndt_terms_gathered", "ndt_gather_repack", "ndt_terms_packed",
+             "ndt_terms_gathered_lanes", "ndt_terms_packed_lanes")
+    wrappers = [getattr(ndt_kernels, name) for name in names]
     cfg = ndt.NDTConfig(grid_capacity=1 << 15, map_capacity=8192,
                         frozen_linesearch=frozen)
     errors = []
     with ndt_odometry_edge.plain_route(errors, magnitudes=True):
-        assert ndt_kernels.ndt_terms_packed is not wrappers[2]
-        res = ndt.ndt_align(ndt.build_ndt_map(ndt_pair[0], cfg), ndt_pair[1],
-                            None, cfg)
-    assert res.converged and len(errors) == res.evaluations > 1
+        assert ndt_kernels.ndt_terms_packed_lanes is not wrappers[4]
+        if lanes == 1:
+            res = ndt.ndt_align(ndt.build_ndt_map(ndt_pair[0], cfg),
+                                ndt_pair[1], None, cfg)
+            assert res.converged
+            evaluations = res.evaluations
+        else:
+            targets = PointCloud(
+                torch.stack([ndt_pair[0].xyzi, ndt_pair[1].xyzi]),
+                torch.stack([ndt_pair[0].mask, ndt_pair[1].mask]))
+            sources = PointCloud(targets.xyzi.flip(0), targets.mask.flip(0))
+            res = ndt.ndt_align_lanes(ndt.build_ndt_map_lanes(targets, cfg),
+                                      sources, None, cfg)
+            assert res.converged.all()
+            evaluations = int(res.evaluations.sum())
+    assert len(errors) == evaluations > lanes
     assert all(rel == 0.0 and mag == 0.0 for _, rel, mag in errors)
-    names = {name for name, _, _ in errors}
-    assert names == ({"ndt_terms_gathered", "ndt_terms_packed"} if frozen
-                     else {"ndt_terms_gathered"})
-    assert (ndt_kernels.ndt_terms_gathered, ndt_kernels.ndt_gather_repack,
-            ndt_kernels.ndt_terms_packed) == wrappers
+    assert {name for name, _, _ in errors} == (
+        {"ndt_terms_gathered", "ndt_terms_packed"} if frozen
+        else {"ndt_terms_gathered"})
+    assert [getattr(ndt_kernels, name) for name in names] == wrappers
 
 
 def test_moved_warm_start_moves_one_coordinate():
@@ -311,38 +329,6 @@ def test_moved_warm_start_moves_one_coordinate():
         step = np.zeros(6)
         step[axis] = 1e-6
         np.testing.assert_allclose((p - p0).numpy(), step, atol=1e-12)
-
-
-@pytest.mark.parametrize("frozen", [False, True])
-def test_plain_route_holds_lane_kernels_at_each_row(ndt_pair, frozen):
-    """Along a lockstep align (the odometry's aligns), ``plain_route(errors)``
-    replaces the K1/K3 lane wrappers too and holds the kernel at every row
-    of every lane call: one error entry per lane evaluation, each 0 on CPU
-    tensors; the lane wrappers are restored after the block."""
-    from toyslam_tpu_torch.core.pointcloud import PointCloud
-    from toyslam_tpu_torch.ops import ndt_kernels
-    from toyslam_tpu_torch.registration import ndt
-
-    wrappers = (ndt_kernels.ndt_terms_gathered_lanes,
-                ndt_kernels.ndt_terms_packed_lanes)
-    cfg = ndt.NDTConfig(grid_capacity=1 << 15, map_capacity=8192,
-                        frozen_linesearch=frozen)
-    targets = PointCloud(torch.stack([ndt_pair[0].xyzi, ndt_pair[1].xyzi]),
-                         torch.stack([ndt_pair[0].mask, ndt_pair[1].mask]))
-    sources = PointCloud(targets.xyzi.flip(0), targets.mask.flip(0))
-    errors = []
-    with ndt_odometry_edge.plain_route(errors, magnitudes=True):
-        assert ndt_kernels.ndt_terms_packed_lanes is not wrappers[1]
-        res = ndt.ndt_align_lanes(ndt.build_ndt_map_lanes(targets, cfg),
-                                  sources, None, cfg)
-    assert res.converged.all()
-    assert len(errors) == int(res.evaluations.sum()) > 2
-    assert all(rel == 0.0 and mag == 0.0 for _, rel, mag in errors)
-    assert {name for name, _, _ in errors} == (
-        {"ndt_terms_gathered", "ndt_terms_packed"} if frozen
-        else {"ndt_terms_gathered"})
-    assert (ndt_kernels.ndt_terms_gathered_lanes,
-            ndt_kernels.ndt_terms_packed_lanes) == wrappers
 
 
 def test_ndt_odometry_edge_needs_a_card():

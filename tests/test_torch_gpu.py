@@ -10,10 +10,12 @@ Bounds: K2 bit-identical (it does no arithmetic); K1/K3 sums within rtol
 1e-4 of the largest sum of their group (score, gradient, Hessian): f32
 sums over ~10^5 pairs in another order, exactly zero where the plain sums
 are (every point masked, every gate shut), bit-identical on a rerun, one
-device operation a call; K1's neighbour hash bit-equal to the plain hash
-where the mask flag holds, the flag equal everywhere (near voxel faces
-too); an NDT align on the card within 1e-4 m / 1e-5 rad of the same align
-through the plain versions on the CPU.
+device operation a call; K1 (its own hash) bit-identical to K3 over the
+stats K2 gathers at the plain hash, and counting the plain hash's open
+pairs exactly (near voxel faces too); an NDT align on the card within
+1e-4 m / 1e-5 rad of the same align through the plain versions on the
+CPU, and 3 device operations an evaluation (the parameters up, K1 or
+K3, the sums down), an upload and K2 a gather.
 K4 bit-identical in both outputs on every row, padded rows included (its
 tensor-core screen only picks the columns that it rescores in f32 as the
 plain version rounds); K5 within 1 bf16 ulp on 99.9 % of the valid
@@ -120,36 +122,46 @@ def _close(got, want, rtol=1e-4):
         assert ((got[sl] - want[sl]).abs().max() / scale) <= rtol
 
 
+def _one_lane(m, xyz, mask, search, p, leaf=1.0):
+    """One source's K1/K3 operands as the NDT evaluator makes them at one
+    lane: the [83] parameters at host pose p, the points [3, N], the mask,
+    the offsets [K, 3] and 1 / leaf; and the plain neighbour hash there."""
+    d1, d2, _ = ndt.gauss_coefficients(leaf, 0.55)
+    ev = ndt._single_lane(m, xyz, mask, leaf, ndt._OFFSETS[search], d1, d2)
+    params = ev.params([p])[0]
+    hashed = ndt_kernels.ndt_neighbor_hash_plain(
+        params, ev.xyz[0], ev.mask[0], m.min_b, m.div, m.hash_table.shape[0],
+        ev.inv_leaf, ev.offsets)
+    return params, ev.xyz[0], ev.mask[0], ev.offsets, ev.inv_leaf, hashed
+
+
 def test_kernels_match_plain_on_card(cuda, clouds):
     cfg = ndt.NDTConfig(grid_capacity=1 << 15, map_capacity=8192)
     m = ndt.build_ndt_map(pointcloud.PointCloud(*(t.to(cuda)
                                                   for t in clouds[0])), cfg)
     src = clouds[1]
-    d1, d2, _ = ndt.gauss_coefficients(1.0, 0.55)
-    ev = ndt._Evaluator(m, src.xyzi[:, :3].to(cuda), src.mask.to(cuda), 1.0,
-                        ndt._OFFSETS["DIRECT7"], d1, d2)
-    params = ev.params(np.array([0.3, 0.0, 0.0, 0.0, 0.0, 0.004],
-                                np.float32))
-    h, nvid, okm = ev.neighbor_hash(params)
+    params, xyz, mask, offsets, inv_leaf, (h, nvid, okm) = _one_lane(
+        m, src.xyzi[:, :3].to(cuda), src.mask.to(cuda), "DIRECT7",
+        np.array([0.3, 0.0, 0.0, 0.0, 0.0, 0.004], np.float32))
     ndt_kernels.reset_launch_counts()
     stats = ndt_kernels.ndt_gather_repack(m.hash_table, h, nvid, okm)
     plain = ndt_kernels.ndt_gather_repack_plain(m.hash_table, h, nvid, okm)
     assert torch.equal(stats.view(torch.int32), plain.view(torch.int32))
     assert 0 < float(stats[9].sum()) < stats.shape[1]
-    _close(ndt_kernels.ndt_terms_packed(params, ev.xyz, stats),
-           ndt_kernels.ndt_terms_packed_plain(params, ev.xyz, stats))
-    k1_args = (params, ev.xyz, ev.mask, m.hash_table, m.min_b, m.div,
-               ev.inv_leaf, ev.offsets)
+    _close(ndt_kernels.ndt_terms_packed(params, xyz, stats),
+           ndt_kernels.ndt_terms_packed_plain(params, xyz, stats))
+    k1_args = (params, xyz, mask, m.hash_table, m.min_b, m.div, inv_leaf,
+               offsets)
     _close(ndt_kernels.ndt_terms_gathered(*k1_args),
            ndt_kernels.ndt_terms_gathered_plain(*k1_args))
     assert ndt_kernels.LAUNCHES == {"ndt_terms_gathered": 1,
                                     "ndt_gather_repack": 1,
                                     "ndt_terms_packed": 1}
     with pytest.raises(TypeError):
-        ndt_kernels.ndt_terms_packed(params.double(), ev.xyz.double(),
+        ndt_kernels.ndt_terms_packed(params.double(), xyz.double(),
                                      stats.double())
     with pytest.raises(ValueError):  # more offsets than a warp's queue holds
-        ndt_kernels.ndt_terms_packed(params, ev.xyz[:, :1].contiguous(),
+        ndt_kernels.ndt_terms_packed(params, xyz[:, :1].contiguous(),
                                      torch.zeros(10, 28, device=cuda))
 
 
@@ -174,14 +186,12 @@ def _ndt_case(ndt_scene, search, shape="full"):
         mask = torch.zeros_like(mask)
     elif shape == "gates_shut":  # no row's valid flag is 1
         table = torch.zeros_like(table)
-    d1, d2, _ = ndt.gauss_coefficients(1.0, 0.55)
-    ev = ndt._Evaluator(m, xyz, mask, 1.0, ndt._OFFSETS[search], d1, d2)
-    params = ev.params(np.array([0.3, 0.0, 0.0, 0.0, 0.0, 0.004],
-                                np.float32))
-    stats = ndt_kernels.ndt_gather_repack_plain(table,
-                                                *ev.neighbor_hash(params))
-    return ((params, ev.xyz, ev.mask, table, m.min_b, m.div, ev.inv_leaf,
-             ev.offsets), (params, ev.xyz, stats))
+    params, xyz, mask, offsets, inv_leaf, hashed = _one_lane(
+        m, xyz, mask, search,
+        np.array([0.3, 0.0, 0.0, 0.0, 0.0, 0.004], np.float32))
+    stats = ndt_kernels.ndt_gather_repack_plain(table, *hashed)
+    return ((params, xyz, mask, table, m.min_b, m.div, inv_leaf, offsets),
+            (params, xyz, stats))
 
 
 def _k1_k3_match_plain(k1_args, k3_args, zero=False):
@@ -263,26 +273,23 @@ def _lane_case(lane_scene, search, lanes):
     m, src = lane_scene
     B = src.mask.shape[0]
     d1, d2, _ = ndt.gauss_coefficients(1.0, 0.55)
-    evs = [ndt._Evaluator(ndt.NDTMap(*(f[b] for f in m)), src.xyzi[b, :, :3],
-                          src.mask[b], 1.0, ndt._OFFSETS[search], d1, d2)
-           for b in range(B)]
-    rows = []
-    for y, b in enumerate(lanes):
-        p = np.array([0.1 + 0.01 * y, -0.05, 0.0, 0.0, 0.0, 0.002 * b],
-                     np.float32)
-        rows.append(evs[b].params(p))
-    params = torch.stack(rows)
-    xyz = torch.stack([ev.xyz for ev in evs])
+    ev = ndt._LaneEvaluator(m, src.xyzi, src.mask, 1.0, ndt._OFFSETS[search],
+                            d1, d2)
+    params = ev.params([
+        np.array([0.1 + 0.01 * y, -0.05, 0.0, 0.0, 0.0, 0.002 * b],
+                 np.float32) for y, b in enumerate(lanes)])
+    xyz, offsets = ev.xyz, ev.offsets
     stats = torch.stack([ndt_kernels.ndt_gather_repack_plain(
-        m.hash_table[b], *evs[b].neighbor_hash(params[
-            lanes.index(b)] if b in lanes else params[0]))
+        m.hash_table[b], *ndt_kernels.ndt_neighbor_hash_plain(
+            params[lanes.index(b)] if b in lanes else params[0], xyz[b],
+            src.mask[b], m.min_b[b], m.div[b], ev.cap, 1.0, offsets))
         for b in range(B)])
     ids = torch.tensor(lanes, dtype=torch.int32, device=params.device)
     k1 = (params, xyz, src.mask, m.hash_table, m.min_b, m.div, 1.0,
-          evs[0].offsets, ids)
+          offsets, ids)
     k3 = (params, xyz, stats, ids)
     singles = [((params[y], xyz[b], src.mask[b], m.hash_table[b], m.min_b[b],
-                 m.div[b], 1.0, evs[0].offsets), (params[y], xyz[b], stats[b]))
+                 m.div[b], 1.0, offsets), (params[y], xyz[b], stats[b]))
                for y, b in enumerate(lanes)]
     return k1, k3, singles
 
@@ -370,8 +377,9 @@ def test_fleet_fusion_four_lanes_equal_single_lanes_on_card(cuda):
 
 def _face_sources(T, xyz, leaf, n_base=256):
     """Points of the cloud moved so that their transforms lie within an ulp
-    of voxel faces, each with every -1/0/+1 ulp combination per axis; and
-    whether an FMA-contracted transform would put any in another voxel."""
+    of voxel faces, each with every -1/0/+1 ulp combination per axis;
+    whether an FMA-contracted transform would put any in another voxel;
+    and the voxel corners [n_base, 3] they lie at."""
     T = T.astype(np.float64)
     R, t = T[:3, :3], T[:3, 3]
     faces = np.round((xyz[:n_base] @ R.T + t) / leaf) * leaf
@@ -393,39 +401,56 @@ def _face_sources(T, xyz, leaf, n_base=256):
                  + T32[r, 3])
         crossed |= bool((np.floor(rounded * inv)
                          != np.floor(fused * inv)).any())
-    return pts, crossed
+    return pts, crossed, faces
 
 
 @pytest.mark.parametrize("leaf", [0.1, 1.0])
 @pytest.mark.parametrize("search", ["DIRECT1", "DIRECT7", "DIRECT27"])
 def test_neighbor_hash_on_card_matches_plain(cuda, clouds, search, leaf):
-    """K1's hash (``neighbor_hash_kernel``, K1's device functions) against
-    the plain hash on the card: the cloud with its 1e9 padding, and points
-    within an ulp of voxel faces, where an FMA would pick another voxel."""
+    """K1's in-kernel hash against the plain hash on the card, through K1
+    itself: the cloud with its 1e9 padding, and points within an ulp of
+    voxel faces, where an FMA would pick another voxel, against a map of
+    points scattered around those faces' corners (so the voxels there are
+    valid at either leaf). K3 over the stats K2 gathers at the plain hash
+    runs K1's gate pass, pair queue, terms and fixed-order sum on the
+    voxels the plain hash picked, so K1 equals it bit for bit where its
+    own hash picks the same voxels; with d1 = -1 and d2 = 0 each open pair
+    adds exactly 1 to the score, so K1 counts the plain hash's open
+    pairs."""
+    p = np.array([0.31, -0.17, 0.05, 0.02, -0.01, 0.3], np.float32)
+    T = se3.pose6_to_matrix(torch.from_numpy(p)).numpy()
+    valid = clouds[1].mask.numpy()
+    faces, crossed, corners = _face_sources(
+        T, clouds[1].xyzi[:, :3].numpy()[valid], leaf)
+    assert crossed
+    around = corners[:, None, :] + leaf * np.random.default_rng(5).uniform(
+        -0.45, 0.45, (len(corners), 64, 3))
     cfg = ndt.NDTConfig(resolution=leaf, grid_capacity=1 << 16,
                         map_capacity=8192)
-    m = ndt.build_ndt_map(pointcloud.PointCloud(*(t.to(cuda)
-                                                  for t in clouds[0])), cfg)
-    ev = ndt._Evaluator(m, clouds[1].xyzi[:, :3].to(cuda),
-                        clouds[1].mask.to(cuda), leaf, ndt._OFFSETS[search],
-                        0.0, 0.0)
-    p = np.array([0.31, -0.17, 0.05, 0.02, -0.01, 0.3], np.float32)
-    params = ev.params(p)
-    T = params[2:14].cpu().numpy().reshape(3, 4)
-    valid = clouds[1].mask.numpy()
-    faces, crossed = _face_sources(T, clouds[1].xyzi[:, :3].numpy()[valid],
-                                   leaf)
-    assert crossed
-    xyz = torch.cat([ev.xyz, torch.from_numpy(faces.T).to(cuda)], 1)
-    mask = torch.cat([ev.mask, torch.ones(len(faces), dtype=torch.bool,
-                                          device=cuda)])
-    args = (params, xyz.contiguous(), mask, m.min_b, m.div,
-            m.hash_table.shape[0], ev.inv_leaf, ev.offsets)
-    h, nvid, okm = ndt_kernels.ndt_neighbor_hash(*args)
-    ph, pnvid, pokm = ndt_kernels.ndt_neighbor_hash_plain(*args)
-    assert torch.equal(okm, pokm)
-    assert torch.equal(h[okm], ph[okm]) and torch.equal(nvid[okm], pnvid[okm])
-    assert 0 < int(okm.sum()) < okm.numel()
+    m = ndt.build_ndt_map(pointcloud.from_numpy(around.reshape(-1, 3),
+                                                device=cuda), cfg)
+    params, xyz, mask, offsets, inv_leaf, _ = _one_lane(
+        m, clouds[1].xyzi[:, :3].to(cuda), clouds[1].mask.to(cuda), search,
+        p, leaf)
+    assert torch.equal(params[2:14].cpu(), torch.from_numpy(T[:3].ravel()))
+    xyz = torch.cat([xyz, torch.from_numpy(faces.T).to(cuda)], 1)
+    xyz = xyz.contiguous()
+    mask = torch.cat([mask, torch.ones(len(faces), dtype=torch.bool,
+                                       device=cuda)])
+    hashed = ndt_kernels.ndt_neighbor_hash_plain(
+        params, xyz, mask, m.min_b, m.div, m.hash_table.shape[0], inv_leaf,
+        offsets)
+    stats = ndt_kernels.ndt_gather_repack(m.hash_table, *hashed)
+    open_pairs = int((stats[9] > 0.5).sum())
+    assert 0 < open_pairs < int(hashed[2].sum()) < hashed[2].numel()
+    counting = params.clone()
+    counting[0], counting[1] = -1.0, 0.0
+    for prm in (params, counting):
+        k1 = ndt_kernels.ndt_terms_gathered(prm, xyz, mask, m.hash_table,
+                                            m.min_b, m.div, inv_leaf, offsets)
+        k3 = ndt_kernels.ndt_terms_packed(prm, xyz, stats)
+        assert torch.equal(k1.view(torch.int32), k3.view(torch.int32))
+    assert float(k1[0]) == open_pairs
 
 
 @pytest.mark.parametrize("frozen", [False, True])
@@ -444,6 +469,40 @@ def test_align_on_card_matches_cpu(cuda, clouds, frozen):
     assert a.converged and b.converged
     np.testing.assert_allclose(b.pose6[:3], a.pose6[:3], atol=1e-4)
     np.testing.assert_allclose(b.pose6[3:], a.pose6[3:], atol=1e-5)
+
+
+@pytest.mark.parametrize("frozen", [False, True])
+def test_align_device_operations_on_card(cuda, clouds, frozen):
+    """An ``ndt_align`` (one lane of the one NDT evaluator) makes one
+    parameter upload, one K1 or K3 launch and one copy to the host an
+    evaluation, and one upload and one K2 launch a gather; besides them,
+    once, the source's transpose, the constants' upload and the point
+    count's sum (2 operations) and join: the exact align is 3 device
+    operations an evaluation and 5 more, as the single-lane align before
+    it. A session that lost events is run again, up to 3 in all."""
+    cfg = ndt.NDTConfig(grid_capacity=1 << 15, map_capacity=8192,
+                        transformation_epsilon=1e-3,
+                        frozen_linesearch=frozen)
+    tgt, src = (pointcloud.PointCloud(*(t.to(cuda) for t in c))
+                for c in clouds)
+    m = ndt.build_ndt_map(tgt, cfg)
+    ndt_kernels.reset_launch_counts()
+    E = ndt.ndt_align(m, src, None, cfg).evaluations
+    k1, k2, k3 = (ndt_kernels.LAUNCHES[k] for k in (
+        "ndt_terms_gathered", "ndt_gather_repack", "ndt_terms_packed"))
+    assert k1 + k3 == E and (k2 > 0) == frozen
+    kernels = {"terms_gathered_kernel": k1, "terms_packed_kernel": k3,
+               "gather_repack_kernel": k2, "HtoD": 1 + E + k2, "DtoH": E}
+    for _ in range(3):
+        prof = gicp_call_ops.profiled(lambda: ndt.ndt_align(m, src, None,
+                                                            cfg))
+        seen = {k: sum(c for key, c in prof["by_name"].items() if k in key)
+                for k in kernels}
+        if seen == kernels:
+            break
+    assert seen == kernels, prof["by_name"]
+    if not frozen:
+        assert prof["ops"] == 3 * E + 5, prof["by_name"]
 
 
 def _gicp_problem(cuda, clouds):

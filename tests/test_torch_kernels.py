@@ -104,16 +104,26 @@ def _assert_terms(got, want):
 
 
 def test_neighbor_hash_matches_jax(case):
-    """The plain-torch hash that feeds K1/K2 gives the JAX slots exactly."""
+    """The plain-torch hash that feeds K1/K2 gives the JAX slots exactly:
+    the one-lane hash, and the lane hash on the NDT evaluator's operands
+    at one lane (whose rows start at 0), as its gather runs it."""
     tm = convert.ndt_map({k: np.asarray(v)
                           for k, v in case["m"]._asdict().items()},
                          device="cpu")
-    ev = tndt._Evaluator(tm, torch.from_numpy(case["src"]),
-                         torch.from_numpy(case["mask"]), 2.0, OFFS, 0, 0)
-    h, nvid, okm = ev.neighbor_hash(case["port"]["params"])
-    np.testing.assert_array_equal(h.numpy(), np.asarray(case["h"]))
-    np.testing.assert_array_equal(nvid.numpy(), np.asarray(case["nvid"]))
-    np.testing.assert_array_equal(okm.numpy(), case["port"]["okm"].numpy())
+    ev = tndt._single_lane(tm, torch.from_numpy(case["src"]),
+                           torch.from_numpy(case["mask"]), 2.0, OFFS, 0, 0)
+    params = case["port"]["params"]
+    one = ndt_kernels.ndt_neighbor_hash_plain(
+        params, ev.xyz[0], ev.mask[0], tm.min_b, tm.div, ev.cap, ev.inv_leaf,
+        ev.offsets)
+    lane = ndt_kernels.ndt_neighbor_hash_lanes_plain(
+        params[None], ev.xyz, ev.mask, ev.map.min_b, ev.map.div, ev.cap,
+        ev.inv_leaf, ev.offsets, ev.row0)
+    for h, nvid, okm in (one, (t[0] for t in lane)):
+        np.testing.assert_array_equal(h.numpy(), np.asarray(case["h"]))
+        np.testing.assert_array_equal(nvid.numpy(), np.asarray(case["nvid"]))
+        np.testing.assert_array_equal(okm.numpy(),
+                                      case["port"]["okm"].numpy())
 
 
 def _k1_args(q):
@@ -169,12 +179,16 @@ def test_wrappers_take_cpu_tensors_to_plain(case):
     assert torch.equal(
         ndt_kernels.ndt_terms_gathered(*_k1_args(q)),
         ndt_kernels.ndt_terms_gathered_plain(*_k1_args(q)))
-    assert all(torch.equal(a, b) for a, b in zip(
-        ndt_kernels.ndt_neighbor_hash(q["params"], q["xyz"], q["mask"],
-                                      q["min_b"], q["div"],
-                                      q["table"].shape[0], 1.0 / RES,
-                                      q["offsets"]),
-        (q["h"], q["nvid"], q["okm"])))
+    # The lane wrappers without lane ids: every lane in order.
+    assert torch.equal(
+        ndt_kernels.ndt_terms_packed_lanes(q["params"][None], q["xyz"][None],
+                                           stats[None], None)[0],
+        ndt_kernels.ndt_terms_packed_plain(q["params"], q["xyz"], stats))
+    assert torch.equal(
+        ndt_kernels.ndt_terms_gathered_lanes(
+            *(a[None] for a in _k1_args(q)[:6]), 1.0 / RES, q["offsets"],
+            None)[0],
+        ndt_kernels.ndt_terms_gathered_plain(*_k1_args(q)))
     assert set(ndt_kernels.LAUNCHES.values()) == {0}
     meta = {k: v.to("meta") for k, v in q.items()}
     with pytest.raises(ValueError, match="no NDT kernel"):

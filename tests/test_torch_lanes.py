@@ -4,15 +4,18 @@ JAX package, on the CPU.
 - K1/K3's lane plain versions (``ndt_kernels.*_lanes_plain``, which the
   lane wrappers take for CPU tensors): each lane bit-identical to the
   single-lane plain version at DIRECT1/7/27, for a subset of lanes in
-  shuffled order; the lanes' plain neighbour hash bit-identical to the
-  single-lane hash;
+  shuffled order, and without lane ids equal to naming every lane; the
+  lanes' plain neighbour hash bit-identical to the single-lane hash, its
+  slots offset by each lane's first row in the stacked table;
 - ``voxel_downsample_lanes`` and ``build_ndt_map_lanes``: each lane
   bit-identical to the single-lane function on it, with ragged masks, a
   lane with every point masked and lanes in different grids;
 - ``ndt_align_lanes`` on ``tests/test_ndt.py:625``'s three lanes of
   different convergence speed, in f64, exact and frozen + 4 regathers:
-  each lane bit-identical to the port's ``ndt_align`` (counters included),
-  one host sync a round; against JAX's ``jax.vmap(ndt.ndt_align)``:
+  each lane at B = 3 bit-identical to its source aligned alone at B = 1
+  (``ndt_align``, counters included: other lanes, their regathers and
+  finished lanes dropping out leave a lane's bits alone), one host sync a
+  round; against JAX's ``jax.vmap(ndt.ndt_align)``:
   iterations, evaluations and gathers equal, poses within 6e-15 (observed
   2.9e-15; JAX's vmap reorders its reductions);
 - the ESKF over lanes: each lane within 5e-16 of ``eskf_run`` alone in
@@ -112,25 +115,25 @@ def test_k1_k3_lane_plain_versions_equal_single(lane_scans, search):
     src = tpc.voxel_downsample_lanes(xyzi[:, 1], mask[:, 1], 0.3, 4096)
     m = tndt.build_ndt_map_lanes(tgt, cfg)
     d1, d2, _ = tndt.gauss_coefficients(1.0, 0.55)
-    offsets = tndt._OFFSETS[search]
-    evs = [tndt._Evaluator(tndt.NDTMap(*(f[b] for f in m)),
-                           src.xyzi[b, :, :3], src.mask[b], 1.0, offsets, d1,
-                           d2) for b in range(3)]
-    lane_ids = torch.tensor([2, 0], dtype=torch.int32)
-    poses = [np.array([0.3, -0.1, 0.0, 0.0, 0.0, 0.004], np.float32),
-             np.array([-0.2, 0.1, 0.05, 0.01, 0.0, -0.02], np.float32)]
-    params = torch.stack([evs[b].params(p)
-                          for b, p in zip(lane_ids.tolist(), poses)])
-    xyz = torch.stack([ev.xyz for ev in evs])
     k = tndt._OFFSETS[search]
-    off = torch.tensor(k, dtype=torch.int32)
+    ev = tndt._LaneEvaluator(m, src.xyzi, src.mask, 1.0, k, d1, d2)
+    lane_ids = torch.tensor([2, 0], dtype=torch.int32)
+    params = ev.params([
+        np.array([0.3, -0.1, 0.0, 0.0, 0.0, 0.004], np.float32),
+        np.array([-0.2, 0.1, 0.05, 0.01, 0.0, -0.02], np.float32)])
+    xyz, off = ev.xyz, ev.offsets
+    idx = lane_ids.long()
+    # Each lane's h offset by its first row in the stacked table.
     hashed = ndt_kernels.ndt_neighbor_hash_lanes_plain(
-        params, xyz[lane_ids.long()], src.mask[lane_ids.long()],
-        m.min_b[lane_ids.long()], m.div[lane_ids.long()], 1 << 14, 1.0, off)
+        params, xyz[idx], src.mask[idx], m.min_b[idx], m.div[idx], 1 << 14,
+        1.0, off, ev.row0[idx])
     stats = torch.zeros((3, 10, len(k) * xyz.shape[2]))
     for y, b in enumerate(lane_ids.tolist()):
-        single = evs[b].neighbor_hash(params[y])
-        for g, w in zip(hashed, single):
+        single = ndt_kernels.ndt_neighbor_hash_plain(
+            params[y], xyz[b], src.mask[b], m.min_b[b], m.div[b], 1 << 14,
+            1.0, off)
+        assert _same(hashed[0][y], single[0] + b * (1 << 14))
+        for g, w in zip(hashed[1:], single[1:]):
             assert _same(g[y], w)
         stats[b] = ndt_kernels.ndt_gather_repack_plain(m.hash_table[b],
                                                        *single)
@@ -148,6 +151,18 @@ def test_k1_k3_lane_plain_versions_equal_single(lane_scans, search):
     # Lane 2's source is masked whole: its sums are exactly zero.
     assert not bool(k1[0].any()) and not bool(k3[0].any())
     assert float(k1[1, 0].abs()) > 0 and float(k3[1, 0].abs()) > 0
+    # No lane ids: every lane in order, as ids 0, 1, 2 name them.
+    every = torch.arange(3, dtype=torch.int32)
+    p3 = torch.cat([params, params[:1]])
+    assert _same(
+        ndt_kernels.ndt_terms_packed_lanes(p3, xyz, stats, None),
+        ndt_kernels.ndt_terms_packed_lanes(p3, xyz, stats, every))
+    assert _same(
+        ndt_kernels.ndt_terms_gathered_lanes(
+            p3, xyz, src.mask, m.hash_table, m.min_b, m.div, 1.0, off, None),
+        ndt_kernels.ndt_terms_gathered_lanes(
+            p3, xyz, src.mask, m.hash_table, m.min_b, m.div, 1.0, off,
+            every))
 
 
 # ---------------------------------------------------------- lockstep align

@@ -9,8 +9,8 @@ the CPU.
   JAX test's own bound for the shard sums' rounding) of JAX's
   ``sharded_align`` on its 8-device mesh (observed 7.5e-7 in both modes)
   and of the port's unsharded ``ndt_align`` (observed 1.8e-7);
-  the shards' host copies are 8 an evaluation; a capacity that does not
-  split raises.
+  the shards' host copies are 8 an evaluation; on one mesh entry it is
+  ``ndt_align`` bit for bit; a capacity that does not split raises.
 - Two processes (this file as ``__main__``) joined by
   ``initialize_multihost`` over Gloo on localhost, each with a timeout:
   a second call is a no-op, an all-reduce sums, the align split between
@@ -109,6 +109,24 @@ def test_sharded_align_matches_jax_and_unsharded(jax_results, frozen):
                                atol=TRANSFORM_TOL)
     np.testing.assert_allclose(out.transform.numpy(), ref.transform.numpy(),
                                rtol=0, atol=TRANSFORM_TOL)
+
+
+@pytest.mark.parametrize("frozen", [False, True], ids=["exact", "frozen"])
+def test_sharded_align_on_one_entry_is_ndt_align(frozen):
+    """One mesh entry: the one NDT evaluator at one lane under the one
+    align loop, so ``ndt_align`` bit for bit, counters included (one
+    shard, one copy an evaluation)."""
+    from toyslam_tpu_torch.parallel import batch
+    from toyslam_tpu_torch.registration import ndt
+
+    m, source, cfg = _port_inputs(frozen)
+    out = batch.sharded_align(batch.make_mesh(1, "cpu"), m, source,
+                              config=cfg)
+    ref = ndt.ndt_align(m, source, None, cfg)
+    for name in ("transform", "pose6", "trans_probability"):
+        assert torch.equal(getattr(out, name), getattr(ref, name)), name
+    assert out[1:3] + out[5:] == ref[1:3] + ref[5:]
+    assert out.host_syncs == out.evaluations
 
 
 def test_sharded_align_rejects_uneven_shards():

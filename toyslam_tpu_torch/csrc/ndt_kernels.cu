@@ -10,7 +10,7 @@
 // buffer in HBM before its kernels ran. Hopper gathers in-kernel:
 // - K1 takes the pose, the source points and mask, and the map's hash
 //   table, and hashes each pair itself (neighbor_of, bit-equal to the plain
-//   ndt_neighbor_hash_plain; neighbor_hash_kernel exports it for checks).
+//   ndt_neighbor_hash_plain).
 // - K2 takes the hash slot h, the expected voxel id nvid and the
 //   in-bounds & source-mask flag okm of every pair from that plain hash and
 //   writes the compact [10, K*N] stats of the frozen line search.
@@ -385,29 +385,6 @@ terms_gathered_kernel(const float* __restrict__ params,
   grid_sum<kThreads, kTerms>(acc, partials, out, counter);
 }
 
-// K1's hash alone, [K*N] offset-major, for checks against the plain hash.
-__global__ void __launch_bounds__(kThreads)
-neighbor_hash_kernel(const float* __restrict__ params,
-                     const float* __restrict__ xyz,
-                     const unsigned char* __restrict__ mask,
-                     const int* __restrict__ min_b,
-                     const int* __restrict__ div,
-                     const int* __restrict__ offsets, int* __restrict__ h,
-                     int* __restrict__ nvid, unsigned char* __restrict__ okm,
-                     int n, int K, float inv_leaf, unsigned int cap_mask) {
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= n) return;
-  const Cell cell = cell_of_point(params, xyz[p], xyz[n + p], xyz[2 * n + p],
-                                  inv_leaf, min_b);
-  for (int k = 0; k < K; ++k) {
-    const Neighbor nb = neighbor_of(cell, offsets + 3 * k, div, cap_mask);
-    const size_t j = static_cast<size_t>(k) * n + p;
-    h[j] = nb.h;
-    nvid[j] = nb.nvid;
-    okm[j] = nb.ok && mask[p];
-  }
-}
-
 // K2: gather + gate -> compact [10, K*N] stats (offset-major).
 __global__ void __launch_bounds__(kRepackThreads)
 gather_repack_kernel(const float4* __restrict__ table,
@@ -495,23 +472,6 @@ extern "C" int ndt_terms_gathered(const void* params, const void* xyz,
       static_cast<const int*>(lane_ids),
       static_cast<float*>(partials), static_cast<float*>(out),
       static_cast<unsigned int*>(counter), static_cast<int>(n),
-      static_cast<int>(K), inv_leaf, static_cast<unsigned int>(cap_mask));
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int ndt_neighbor_hash(const void* params, const void* xyz,
-                                 const void* mask, const void* min_b,
-                                 const void* div, const void* offsets,
-                                 void* h, void* nvid, void* okm, long long n,
-                                 long long K, float inv_leaf,
-                                 long long cap_mask, void* stream) {
-  neighbor_hash_kernel<<<static_cast<int>((n + kThreads - 1) / kThreads),
-                         kThreads, 0, as_stream(stream)>>>(
-      static_cast<const float*>(params), static_cast<const float*>(xyz),
-      static_cast<const unsigned char*>(mask), static_cast<const int*>(min_b),
-      static_cast<const int*>(div), static_cast<const int*>(offsets),
-      static_cast<int*>(h), static_cast<int*>(nvid),
-      static_cast<unsigned char*>(okm), static_cast<int>(n),
       static_cast<int>(K), inv_leaf, static_cast<unsigned int>(cap_mask));
   return static_cast<int>(cudaGetLastError());
 }

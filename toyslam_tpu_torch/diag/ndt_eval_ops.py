@@ -4,14 +4,15 @@
 
 Builds the align-65k pair of ``chip_smoke.py`` (two generated 32 x
 2048-ray scans, the 0.1 m downsample, ``NDTConfig()``) and profiles with
-``torch.profiler``, after a warm-up of each, one exact evaluation
-(``_Evaluator.derivs``: the parameters up, the sums, the sums down) and one
-frozen one (the same on stats gathered at the same pose). Prints one JSON
-line: the card, and for each evaluation its device operations by name and
-their device time. It uses only what ``_Evaluator`` has offered since the
-NDT path was ported, so it also measures another checkout of the package:
-``PYTHONPATH=<checkout> python3 toyslam_tpu_torch/diag/ndt_eval_ops.py``.
-Needs a CUDA device.
+``torch.profiler``, after a warm-up of each, one exact evaluation of the
+NDT evaluator at one lane (``_LaneEvaluator.derivs``: the parameters up,
+the sums, the sums down), as ``ndt_align`` makes it, and one frozen one
+(the same on stats gathered at the same pose). Prints one JSON line: the
+card, and for each evaluation its device operations by name and their
+device time. It uses only what ``_LaneEvaluator`` has offered since the
+fleet's lanes were ported, so it also measures another checkout of the
+package: ``PYTHONPATH=<checkout> python3
+toyslam_tpu_torch/diag/ndt_eval_ops.py``. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -24,8 +25,10 @@ import numpy as np
 import torch
 
 
-def profile_evaluation(ev, p, stats=None, sessions=3):
-    """One ``ev.derivs(p, stats)`` under torch.profiler after a warm-up:
+def profile_evaluation(ev, p, frozen=False, sessions=3):
+    """One evaluation of lane 0 at host pose ``p`` (``ev.derivs``; against
+    its gathered neighbourhood if ``frozen``) under torch.profiler after a
+    warm-up:
     device operations, their device milliseconds, and the count by name. A
     profiler session on the card can miss its first device events, so each
     session starts with a few spins of the card (``torch.cuda._sleep``'s
@@ -34,7 +37,7 @@ def profile_evaluation(ev, p, stats=None, sessions=3):
     all; raises if every one is empty."""
     from torch.profiler import ProfilerActivity, profile
 
-    ev.derivs(p, stats)
+    ev.derivs([(0, p, frozen)])
     torch.cuda.synchronize()
     for _ in range(sessions):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -42,7 +45,7 @@ def profile_evaluation(ev, p, stats=None, sessions=3):
                 torch.cuda._sleep(1000)
             torch.cuda.synchronize()
             time.sleep(0.01)
-            ev.derivs(p, stats)
+            ev.derivs([(0, p, frozen)])
             torch.cuda.synchronize()
         rows = [(e.key, e.count, e.self_device_time_total)
                 for e in prof.key_averages()
@@ -76,21 +79,21 @@ def run():
         0.1) for k in range(2)]
     cfg = ndt.NDTConfig()
     d1, d2, _ = ndt.gauss_coefficients(cfg.resolution, cfg.outlier_ratio)
-    ev = ndt._Evaluator(ndt.build_ndt_map(clouds[0], cfg),
-                        clouds[1].xyzi[:, :3], clouds[1].mask,
-                        cfg.resolution, ndt._OFFSETS[cfg.search_method], d1,
-                        d2)
+    ev = ndt._LaneEvaluator(
+        ndt.NDTMap(*(f[None] for f in ndt.build_ndt_map(clouds[0], cfg))),
+        clouds[1].xyzi[None], clouds[1].mask[None], cfg.resolution,
+        ndt._OFFSETS[cfg.search_method], d1, d2)
     p = ndt.se3.matrix_to_pose6(torch.from_numpy(
         np.linalg.inv(gt[0]) @ gt[1])).numpy().astype(np.float32)
-    stats = ev.gather(ev.params(p))
+    ev.gather([0], [p])
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     return {"device": torch.cuda.get_device_name(0), "card": card,
-            "points": int(ev.xyz.shape[1]), "K": ev.K,
+            "points": int(ev.xyz.shape[2]), "K": len(ev.offsets),
             "exact": profile_evaluation(ev, p),
-            "frozen": profile_evaluation(ev, p, stats)}
+            "frozen": profile_evaluation(ev, p, frozen=True)}
 
 
 if __name__ == "__main__":

@@ -74,10 +74,9 @@ def magnitude_err(got, want, terms):
 def lane_row_args(name, args, y, b=None):
     """The one-lane arguments behind row y of a K1 or K3 lane call
     (``ndt_terms_{gathered,packed}_lanes``): its params row and lane
-    ``b = lane_ids[y]``'s operands (``b`` read from the call's lane ids
-    unless given)."""
+    ``b``'s operands (``b`` read from the call's lanes unless given)."""
     if b is None:
-        b = int(args[-1][y])
+        b = ndt_kernels.lane_list(args[1], args[-1])[y]
     if name == "ndt_terms_packed":
         params, xyz, stats10, _ = args
         return params[y], xyz[b], stats10[b]

@@ -21,8 +21,9 @@ The fleet's lane axis (``*_lanes``, what JAX's ``vmap`` of a
 ``pallas_call`` gives its grid): B lanes' inputs stacked lane-major (xyz
 [B, 3, N], mask [B, N], table [B, cap, 16], min_b and div [B, 3], stats10
 [B, 10, K*N]), params [L, 83] and ``lane_ids`` [L] int32: row y of the
-output [L, 28] is lane ``lane_ids[y]`` evaluated at params row y. One
-launch evaluates the L lanes still running; lanes not named cost nothing.
+output [L, 28] is lane ``lane_ids[y]`` evaluated at params row y, or lane
+y when ``lane_ids`` is None (every lane in order, L = B). One launch
+evaluates the L lanes still running; lanes not named cost nothing.
 K1 and K3 run one kernel body for both: the single-lane wrappers launch
 it with L = 1, and lane b of a batched launch is bit-identical to the
 single-lane launch on lane b's inputs. A lane launch counts once under
@@ -102,11 +103,13 @@ def ndt_neighbor_hash_plain(params, xyz, mask, min_b, div, cap, inv_leaf,
 
 
 def ndt_neighbor_hash_lanes_plain(params, xyz, mask, min_b, div, cap,
-                                  inv_leaf, offsets):
+                                  inv_leaf, offsets, row0):
     """``ndt_neighbor_hash_plain`` of L lanes at once: params [L, 83], xyz
-    [L, 3, N], mask [L, N], min_b and div [L, 3] -> h, nvid, okm [L, K*N].
-    The same operations, broadcast over the lanes, so each lane is
-    bit-identical to the single-lane hash."""
+    [L, 3, N], mask [L, N], min_b and div [L, 3] -> h, nvid, okm [L, K*N],
+    with each lane's ``h`` offset by its ``row0`` [L, 1] (the lane's first
+    row in a stacked [B * cap, 16] table). The same operations, broadcast
+    over the lanes, so each lane is bit-identical to the single-lane hash
+    plus its offset."""
     L, K, N = xyz.shape[0], offsets.shape[0], xyz.shape[2]
     T = params[:, 2:14]
     sx, sy, sz = xyz.unbind(1)
@@ -123,7 +126,8 @@ def ndt_neighbor_hash_lanes_plain(params, xyz, mask, min_b, div, cap,
             & (nijk[1] < d1) & (nijk[2] >= 0) & (nijk[2] < d2))
     nvid = nijk[0] + nijk[1] * d0 + nijk[2] * (d0 * d1)
     ok = in_b & (nvid >= 0)
-    h = torch.where(ok, nvid & (cap - 1), 0)
+    # torch.where(ok, slot, 0) + row0 in one operation.
+    h = torch.addcmul(row0, nvid & (cap - 1), ok)
     return h, nvid, (ok.view(L, K, N) & mask[:, None, :]).reshape(L, K * N)
 
 
@@ -238,11 +242,17 @@ def ndt_terms_gathered_plain(params, xyz, mask, table, min_b, div, inv_leaf,
                                   ndt_gather_repack_plain(table, *hashed))
 
 
+def lane_list(xyz, lane_ids):
+    """The lanes a lane call names, a grid row each: ``lane_ids``, or every
+    lane of ``xyz [B, 3, N]`` in order when it is None."""
+    return range(xyz.shape[0]) if lane_ids is None else lane_ids.tolist()
+
+
 def ndt_terms_packed_lanes_plain(params, xyz, stats10, lane_ids):
     """K3's plain version over lanes: row y is ``ndt_terms_packed_plain``
     of lane ``lane_ids[y]`` at params row y, [L, 28]."""
     return torch.stack([ndt_terms_packed_plain(params[y], xyz[b], stats10[b])
-                        for y, b in enumerate(lane_ids.tolist())])
+                        for y, b in enumerate(lane_list(xyz, lane_ids))])
 
 
 def ndt_terms_gathered_lanes_plain(params, xyz, mask, table, min_b, div,
@@ -252,7 +262,7 @@ def ndt_terms_gathered_lanes_plain(params, xyz, mask, table, min_b, div,
     return torch.stack([
         ndt_terms_gathered_plain(params[y], xyz[b], mask[b], table[b],
                                  min_b[b], div[b], inv_leaf, offsets)
-        for y, b in enumerate(lane_ids.tolist())])
+        for y, b in enumerate(lane_list(xyz, lane_ids))])
 
 
 # --------------------------------------------------------------------------
@@ -273,8 +283,6 @@ def _library():
         _lib = _cuda.load(SOURCE, {
             "ndt_terms_gathered": [p, p, p, p, p, p, p, p, p, p, p, i64,
                                    i64, f32, i64, i64, i64, p],
-            "ndt_neighbor_hash": [p, p, p, p, p, p, p, p, p, i64, i64, f32,
-                                  i64, p],
             "ndt_gather_repack": [p, p, p, p, p, i64, p],
             "ndt_terms_packed": [p, p, p, p, p, p, p, i64, i64, i64, i64,
                                  p],
@@ -332,25 +340,6 @@ def _blocks(n):
     return min(-(-n * LANES // THREADS), MAX_BLOCKS)
 
 
-def ndt_neighbor_hash(params, xyz, mask, min_b, div, cap, inv_leaf, offsets):
-    """K1's neighbour hash alone, ``(h, nvid, okm)`` [K*N] offset-major, for
-    checks against ``ndt_neighbor_hash_plain``. On the card it launches
-    ``neighbor_hash_kernel``, which shares K1's device functions; no path
-    calls it, so it has no launch count."""
-    if _on_cpu(params, xyz, mask, min_b, div, offsets):
-        return ndt_neighbor_hash_plain(params, xyz, mask, min_b, div, cap,
-                                       inv_leaf, offsets)
-    n = _check_points(params, xyz)
-    K = _check_hash(mask, min_b, div, cap, offsets, n)
-    dev = xyz.device
-    h = torch.empty(K * n, dtype=torch.int32, device=dev)
-    nvid = torch.empty_like(h)
-    okm = torch.empty(K * n, dtype=torch.bool, device=dev)
-    _cuda.launch(_library().ndt_neighbor_hash, params, xyz, mask, min_b, div,
-                 offsets, h, nvid, okm, n, K, inv_leaf, cap - 1)
-    return h, nvid, okm
-
-
 def ndt_gather_repack(table, h, nvid, okm):
     """K2: ``table [cap, 16]`` rows at ``h`` -> ``stats10 [10, K*N]``."""
     if _on_cpu(table, h, nvid, okm):
@@ -364,20 +353,21 @@ def ndt_gather_repack(table, h, nvid, okm):
     return out
 
 
-def _check_lanes(params, lane_ids):
-    """The lane operands: params [L, 83] and lane ids [L] in [0, B); returns
-    L. The ids are not read back from the card (no host sync): the caller
-    names lanes that exist."""
-    L = lane_ids.shape[0]
+def _check_lanes(params, xyz, lane_ids):
+    """The lane operands: params [L, 83] and lane ids [L] in [0, B), or no
+    ids and L = B; returns L. The ids are not read back from the card (no
+    host sync): the caller names lanes that exist."""
+    L = xyz.shape[0] if lane_ids is None else lane_ids.shape[0]
     _cuda.check("params", params, torch.float32, (L, N_PARAMS))
-    _cuda.check("lane_ids", lane_ids, torch.int32, (L,))
+    if lane_ids is not None:
+        _cuda.check("lane_ids", lane_ids, torch.int32, (L,))
     if not 1 <= L <= 65535:  # gridDim.y
         raise ValueError(f"{L} lanes: the kernels take 1 to 65535")
     return L
 
 
 def _terms_packed(params, xyz, stats10, lane_ids, L):
-    """K3 over L grid rows (lane_ids None: the single lane)."""
+    """K3 over L grid rows (lane_ids None: grid row y is lane y)."""
     B, n = xyz.shape[0], xyz.shape[2]
     _cuda.check("xyz", xyz, torch.float32, (B, 3, n))
     if n == 0 or n * 8 >= 2**31:
@@ -398,7 +388,7 @@ def _terms_packed(params, xyz, stats10, lane_ids, L):
 
 def _terms_gathered(params, xyz, mask, table, min_b, div, inv_leaf, offsets,
                     lane_ids, L):
-    """K1 over L grid rows (lane_ids None: the single lane)."""
+    """K1 over L grid rows (lane_ids None: grid row y is lane y)."""
     B, n = xyz.shape[0], xyz.shape[2]
     _cuda.check("xyz", xyz, torch.float32, (B, 3, n))
     if n == 0 or n * 8 >= 2**31:
@@ -443,12 +433,18 @@ def ndt_terms_gathered(params, xyz, mask, table, min_b, div, inv_leaf,
                            1)[0]
 
 
+def _ids(lane_ids):
+    """The lane ids as the tensors ``_on_cpu`` reads: none without ids."""
+    return () if lane_ids is None else (lane_ids,)
+
+
 def ndt_terms_packed_lanes(params, xyz, stats10, lane_ids):
     """K3 over lanes: ``[L, 28]``, row y the sums of lane ``lane_ids[y]``
-    (stats10 [B, 10, K*N], xyz [B, 3, N]) at params row y, in one launch."""
-    if _on_cpu(params, xyz, stats10, lane_ids):
+    (stats10 [B, 10, K*N], xyz [B, 3, N]; lane y without ids) at params
+    row y, in one launch."""
+    if _on_cpu(params, xyz, stats10, *_ids(lane_ids)):
         return ndt_terms_packed_lanes_plain(params, xyz, stats10, lane_ids)
-    L = _check_lanes(params, lane_ids)
+    L = _check_lanes(params, xyz, lane_ids)
     out = _terms_packed(params, xyz, stats10, lane_ids, L)
     LANE_ROWS["ndt_terms_packed"] += L
     return out
@@ -457,13 +453,14 @@ def ndt_terms_packed_lanes(params, xyz, stats10, lane_ids):
 def ndt_terms_gathered_lanes(params, xyz, mask, table, min_b, div, inv_leaf,
                              offsets, lane_ids):
     """K1 over lanes: ``[L, 28]``, row y the sums of lane ``lane_ids[y]``
-    (xyz [B, 3, N], mask [B, N], table [B, cap, 16], min_b and div [B, 3])
-    at params row y, in one launch."""
-    if _on_cpu(params, xyz, mask, table, min_b, div, offsets, lane_ids):
+    (xyz [B, 3, N], mask [B, N], table [B, cap, 16], min_b and div [B, 3];
+    lane y without ids) at params row y, in one launch."""
+    if _on_cpu(params, xyz, mask, table, min_b, div, offsets,
+               *_ids(lane_ids)):
         return ndt_terms_gathered_lanes_plain(params, xyz, mask, table, min_b,
                                               div, inv_leaf, offsets,
                                               lane_ids)
-    L = _check_lanes(params, lane_ids)
+    L = _check_lanes(params, xyz, lane_ids)
     out = _terms_gathered(params, xyz, mask, table, min_b, div, inv_leaf,
                           offsets, lane_ids, L)
     LANE_ROWS["ndt_terms_gathered"] += L

@@ -39,6 +39,7 @@ from toyslam_tpu_torch.pipelines import batch_fusion as bf
 from toyslam_tpu_torch.pipelines import fusion as fus
 from toyslam_tpu_torch.pipelines import odometry as odo
 from toyslam_tpu_torch.registration import ndt
+from toyslam_tpu_torch.utils.profiling import span
 
 
 def vmap_align(targets_xyzi, targets_mask, sources_xyzi, sources_mask,
@@ -187,13 +188,15 @@ def _process_group():
 
 
 class _ShardedEvaluator:
-    """One align's device side over point shards: each shard an
-    ``ndt._Evaluator`` on its device, against the map's copy there (one a
-    device). An evaluation launches every shard's K1, or K3 against its
-    frozen neighbourhood (gathered by its own K2), before it copies each
-    shard's row of 28 sums to the host (one copy a shard; the first also
-    carries the shard's point count); the rows are added in mesh order
-    and, under a process group, all-reduced once."""
+    """One align's device side over point shards, with the lane evaluator's
+    protocol at one lane: each shard an ``ndt._LaneEvaluator`` of one lane
+    on its device, against the map's copy there (one a device). The
+    parameters go up once a device. An evaluation launches every shard's
+    K1, or K3 against its frozen neighbourhood (gathered by its own K2),
+    before it copies each shard's row of 28 sums to the host (one copy a
+    shard, each counted in ``host_syncs``; the first also carries the
+    shard's point count); the rows are added in mesh order and, under a
+    process group, all-reduced once."""
 
     def __init__(self, mesh, ndt_map, source: PointCloud, config, group):
         n = len(mesh)
@@ -209,41 +212,41 @@ class _ShardedEvaluator:
         for i, dev in enumerate(mesh):
             dev = torch.device(dev)
             if dev not in maps:
-                maps[dev] = ndt.NDTMap(*(x.to(dev) for x in ndt_map))
+                maps[dev] = ndt.NDTMap(*(x.to(dev)[None] for x in ndt_map))
             cut = slice(i * per, (i + 1) * per)
-            self.shards.append(ndt._Evaluator(
-                maps[dev], source.xyzi[cut, :3].to(dev),
-                source.mask[cut].to(dev), config.resolution,
+            self.shards.append(ndt._LaneEvaluator(
+                maps[dev], source.xyzi[None, cut, :3].to(dev),
+                source.mask[None, cut].to(dev), config.resolution,
                 ndt._OFFSETS[config.search_method], d1, d2))
         self.dtype = source.xyzi.dtype
         self.group = group
         self.n_src = None
-        self.syncs = 0
+        self.host_syncs = 0
 
-    def params(self, p):
-        """The [83] parameters at host pose p, on each shard's device (one
-        upload a device)."""
+    def params(self, poses):
+        """The [1, 83] parameters at the host pose, on each shard's device
+        (one upload a device)."""
         up = {}
         for ev in self.shards:
-            if ev.xyz.device not in up:
-                up[ev.xyz.device] = ev.params(p)
-        return [up[ev.xyz.device] for ev in self.shards]
+            if ev.dev not in up:
+                up[ev.dev] = ev.params(poses)
+        return [up[ev.dev] for ev in self.shards]
 
-    def gather(self, params):
-        return [ev.gather(pr) for ev, pr in zip(self.shards, params)]
+    def gather(self, lanes, poses):
+        for ev, params in zip(self.shards, self.params(poses)):
+            ev.gather(lanes, poses, params)
 
-    def derivs(self, p, stats=None):
-        """Host (score, grad, hess) at host pose p, summed over the shards
-        (and the processes)."""
-        params = self.params(p)
-        sums = [ev.sums(pr, None if stats is None else st)
-                for ev, pr, st in zip(self.shards, params,
-                                      stats or [None] * len(params))]
+    def derivs(self, requests):
+        """Host (score, grad, hess) of the one request ``(0, pose,
+        frozen)``, summed over the shards (and the processes)."""
+        ((lane, pose, frozen),) = requests
+        sums = [ev.sums(params, [lane], frozen).reshape(-1)
+                for ev, params in zip(self.shards, self.params([pose]))]
         if self.n_src is None:
             sums = [torch.cat([s, ev.mask.sum(dtype=s.dtype)[None]])
                     for s, ev in zip(sums, self.shards)]
         rows = [s.cpu().numpy() for s in sums]
-        self.syncs += len(rows)
+        self.host_syncs += len(rows)
         total = reduce(np.add, rows)
         if self.group is not None:
             import torch.distributed as dist
@@ -252,8 +255,8 @@ class _ShardedEvaluator:
             dist.all_reduce(t, group=self.group)
             total = t.numpy()
         if self.n_src is None:
-            total, self.n_src = total[:-1], np.maximum(total[-1], 1)
-        return ndt._unpack(total)
+            total, self.n_src = total[:-1], np.maximum(total[-1:], 1)
+        return {lane: ndt._unpack(total)}
 
 
 def sharded_align(mesh, ndt_map: ndt.NDTMap, source: PointCloud,
@@ -263,9 +266,11 @@ def sharded_align(mesh, ndt_map: ndt.NDTMap, source: PointCloud,
     ``len(mesh)`` equal contiguous shards (anything else raises), one a
     mesh entry, the map copied to each device; every evaluation runs each
     shard's kernels and adds their sums (``_ShardedEvaluator``), and the
-    Newton / More-Thuente loop is ``ndt_align``'s. Under a process group
-    ``source`` is this process's points and the sums are all-reduced
-    across processes; every process returns the same result. The result's
-    ``host_syncs`` counts the shards' copies."""
+    Newton / More-Thuente loop is ``ndt_align``'s (``ndt._align_lanes`` at
+    one lane). Under a process group ``source`` is this process's points
+    and the sums are all-reduced across processes; every process returns
+    the same result. The result's ``host_syncs`` counts the shards'
+    copies."""
     ev = _ShardedEvaluator(mesh, ndt_map, source, config, _process_group())
-    return ndt.align_with(ev, guess, config)
+    with span("ndt.align"):
+        return ndt._lane0(ndt._align_lanes(ev, [guess], config))

@@ -17,18 +17,25 @@ Re-implements ``pclomp::NormalDistributionsTransform`` (reference
 - ``ndt_align``: Newton steps with the More-Thuente line search.
 - The fleet's lane axis (JAX's ``vmap``): ``build_ndt_map_lanes`` builds
   B maps in one pass, and ``ndt_align_lanes`` runs B aligns in lockstep,
-  each lane's host logic its own generator (``_align_steps``, which
-  ``ndt_align`` drives alone) and each round one K1 or K3 launch and one
-  host sync for all running lanes. Each lane is bit-identical to the
-  single-lane functions on it.
+  each lane's host logic its own generator (``_align_steps``) and each
+  round one K1 or K3 launch and one host sync for all running lanes. Each
+  lane is bit-identical to the same source aligned alone.
+
+One evaluator (``_LaneEvaluator``) and one host loop (``_align_lanes``)
+serve every NDT align: ``ndt_align`` is ``ndt_align_lanes`` at one lane,
+``compute_derivatives`` and ``gather_neighborhood`` evaluate one lane, and
+``parallel/batch.sharded_align`` drives an evaluator of the same protocol
+over point shards. A round that names every lane in order passes the
+kernels no lane ids, so one lane costs what it would alone.
 
 The host loop is a design choice, not a fallback. JAX runs the Newton and
 line-search control flow inside ``lax.while_loop``; here it is a Python
 loop. The 6x6 SVD solve and the More-Thuente scalar logic run on the host
 in the source dtype (numpy scalars, torch CPU for the SVD), and every
-derivative evaluation brings its 28 sums back in one device-to-host copy,
-which is the loop's only synchronisation point (``NDTResult.host_syncs``
-counts them). Voxel gathers for the frozen line search stay on the device.
+round of derivative evaluations brings its sums back in one device-to-host
+copy, which is the loop's only synchronisation point
+(``NDTResult.host_syncs`` counts them). Voxel gathers for the frozen line
+search stay on the device.
 
 Deliberate differences from the reference are the JAX package's: KDTREE
 search dropped, Hessian on every evaluation, the float-path ``h_ang`` sign
@@ -430,79 +437,139 @@ def _unpack(sums):
     return sums[0], sums[1:7], hess
 
 
-class _Evaluator:
-    """Per-align device constants plus the hash, gather and derivative
-    launches; counts the evaluations' host synchronisations."""
+class _LaneEvaluator:
+    """The device side of B aligns in lockstep (B = 1 for one align): the
+    lane map, the sources [B, 3, N], the lanes' frozen neighbourhoods
+    [B, 10, K*N], one batched gather and one batched evaluation a round.
+    A round that names every lane in order needs no lane ids: the kernels
+    then take grid row y as lane y, and the gather writes ``stats`` whole.
+    ``host_syncs`` counts the rounds' device-to-host copies."""
 
     def __init__(self, ndt_map, src_xyz, src_mask, resolution, offsets,
                  d1, d2):
         self.map = ndt_map
-        dev = src_xyz.device
+        self.dev = src_xyz.device
         self.dtype = src_xyz.dtype
         self.np_dtype = torch.empty((), dtype=self.dtype).numpy().dtype
-        self.xyz = src_xyz[:, :3].T.contiguous()  # [3, N]
-        self.mask = src_mask
+        self.B, self.N = src_mask.shape
+        self.xyz = src_xyz[..., :3].transpose(1, 2).contiguous()  # [B, 3, N]
+        self.mask = src_mask.contiguous()
         self.K = len(offsets)
-        self.offsets = torch.tensor(offsets, dtype=torch.int32, device=dev)
+        self.cap = ndt_map.hash_table.shape[1]
+        # One non-blocking upload (no wait on the map's build): the offsets
+        # [K, 3] and each lane's first row in the [B * cap, 16] table.
+        consts = torch.tensor(np.concatenate(
+            [np.ravel(offsets), np.arange(self.B) * self.cap]),
+            dtype=torch.int32).to(self.dev, non_blocking=True)
+        self.offsets = consts[:3 * self.K].view(self.K, 3)
+        self.row0 = consts[3 * self.K:, None]
         self.inv_leaf = 1.0 / resolution
         self.d12 = np.array([d1, d2], self.np_dtype)
+        self.stats = None  # [B, 10, K*N], a lane's row set by its gathers
         self.n_src = None
-        self.syncs = 0
+        self.host_syncs = 0
 
-    def params(self, p):
-        """Host pose6 -> the [83] device parameter vector."""
-        j_tab, h_tab = _angle_tables(p)
-        host = np.concatenate([self.d12, _pose_matrix(p)[:3, :].ravel(),
-                               j_tab.ravel(), h_tab.ravel()])
-        return torch.from_numpy(host).to(self.xyz.device)
+    def params(self, poses):
+        """Host poses -> the [L, 83] device parameters (a non-blocking
+        copy: no host sync)."""
+        host = np.stack([np.concatenate(
+            [self.d12, _pose_matrix(p)[:3, :].ravel(), j.ravel(), h.ravel()])
+            for p, (j, h) in ((p, _angle_tables(p)) for p in poses)])
+        return torch.from_numpy(host).to(self.dev, non_blocking=True)
 
-    def neighbor_hash(self, params):
-        """Hash slot, expected voxel id and in-bounds & source-mask flag of
-        every (DIRECT offset, point) pair, [K*N] offset-major."""
-        m = self.map
-        return ndt_kernels.ndt_neighbor_hash_plain(
-            params, self.xyz, self.mask, m.min_b, m.div,
-            m.hash_table.shape[0], self.inv_leaf, self.offsets)
+    def lane_ids(self, lanes):
+        """The device ids of ``lanes`` (sorted, distinct), or None when they
+        are every lane."""
+        if len(lanes) == self.B:
+            return None
+        return torch.tensor(lanes, dtype=torch.int32).to(self.dev,
+                                                         non_blocking=True)
 
     @spanned("ndt.gather")
-    def gather(self, params):
-        return ndt_kernels.ndt_gather_repack(self.map.hash_table,
-                                             *self.neighbor_hash(params))
+    def gather(self, lanes, poses, params=None):
+        """The frozen neighbourhoods of ``lanes`` at their host poses (or at
+        their ``params`` already on the device): the plain neighbour hash
+        over the lanes at once, one K2 launch over the lanes' pairs in the
+        [B*cap, 16] table, and the lanes' rows of ``stats``."""
+        m = self.map
+        if params is None:
+            params = self.params(poses)
+        ids = self.lane_ids(lanes)
+        if ids is None:  # whole tensors (views), each lane's first row
+            idx, row0 = slice(None), self.row0
+        else:
+            idx, row0 = ids.long(), ids[:, None] * self.cap
+        h, nvid, okm = ndt_kernels.ndt_neighbor_hash_lanes_plain(
+            params, self.xyz[idx], self.mask[idx], m.min_b[idx], m.div[idx],
+            self.cap, self.inv_leaf, self.offsets, row0)
+        packed = ndt_kernels.ndt_gather_repack(
+            m.hash_table.view(self.B * self.cap, 16), h.reshape(-1),
+            nvid.reshape(-1), okm.reshape(-1))
+        packed = packed.view(10, len(lanes), -1).transpose(0, 1)
+        if ids is None:
+            self.stats = packed.contiguous()  # a view at one lane
+            return
+        if self.stats is None:
+            self.stats = torch.zeros((self.B,) + packed.shape[1:],
+                                     dtype=self.dtype, device=self.dev)
+        self.stats[idx] = packed
 
-    def sums(self, params, stats=None):
-        if stats is None:  # K1 hashes, gathers and sums in one launch
-            m = self.map
-            return ndt_kernels.ndt_terms_gathered(
-                params, self.xyz, self.mask, m.hash_table, m.min_b, m.div,
-                self.inv_leaf, self.offsets)
-        return ndt_kernels.ndt_terms_packed(params, self.xyz, stats)
+    def sums(self, params, lanes, frozen):
+        """The [L, 28] device sums of ``lanes`` at ``params``: one K3 launch
+        against their frozen neighbourhoods, or one K1 launch."""
+        m = self.map
+        ids = self.lane_ids(lanes)
+        if frozen:
+            return ndt_kernels.ndt_terms_packed_lanes(params, self.xyz,
+                                                      self.stats, ids)
+        return ndt_kernels.ndt_terms_gathered_lanes(
+            params, self.xyz, self.mask, m.hash_table, m.min_b, m.div,
+            self.inv_leaf, self.offsets, ids)
 
     @spanned("ndt.derivs")
-    def derivs(self, p, stats=None):
-        """Host (score, grad, hess) at host pose p: one device-to-host copy
-        (the first also carries the source point count)."""
-        sums = self.sums(self.params(p), stats)
+    def derivs(self, requests):
+        """Host (score, grad, hess) of every request ``(lane, pose, frozen)``
+        in one device-to-host copy: one K1 launch over the fresh ones and
+        one K3 launch over the frozen ones (the first round also carries
+        each lane's source point count)."""
+        sums, order = [], []
+        for frozen in (False, True):
+            group = [r for r in requests if r[2] == frozen]
+            if group:
+                lanes = [r[0] for r in group]
+                sums.append(self.sums(self.params([r[1] for r in group]),
+                                      lanes, frozen))
+                order += lanes
+        flat = (sums[0] if len(sums) == 1 else torch.cat(sums)).reshape(-1)
         if self.n_src is None:
-            both = torch.cat([sums, self.mask.sum(dtype=sums.dtype)[None]])
-            both = _to_host(both)
-            sums, self.n_src = both[:-1], np.maximum(both[-1], 1)
+            counts = self.mask.sum(1, dtype=flat.dtype)
+            host = _to_host(torch.cat([flat, counts]))
+            flat, self.n_src = host[:-self.B], np.maximum(host[-self.B:], 1)
         else:
-            sums = _to_host(sums)
-        self.syncs += 1
-        return _unpack(sums)
+            flat = _to_host(flat)
+        self.host_syncs += 1
+        rows = flat.reshape(len(order), ndt_kernels.N_TERMS)
+        return dict(zip(order, (_unpack(r) for r in rows)))
 
 
 def _to_host(t):
-    """An evaluation's device-to-host copy (its host sync), as numpy."""
+    """A round's device-to-host copy (its host sync), as numpy."""
     with span("ndt.sync"):
         return t.cpu().numpy()
+
+
+def _single_lane(ndt_map, src_xyz, src_mask, resolution, offsets, d1, d2):
+    """The evaluator of one source ``[N, 3+]`` against one map."""
+    return _LaneEvaluator(NDTMap(*(f[None] for f in ndt_map)), src_xyz[None],
+                          src_mask[None], resolution, offsets, d1, d2)
 
 
 def gather_neighborhood(ndt_map, src_xyz, src_mask, p, resolution,
                         offsets) -> NeighborhoodStats:
     """Voxel stats of every (DIRECT offset, source point) at pose6 ``p``."""
-    ev = _Evaluator(ndt_map, src_xyz, src_mask, resolution, offsets, 0, 0)
-    return NeighborhoodStats(ev.gather(ev.params(np.asarray(p, ev.np_dtype))))
+    ev = _single_lane(ndt_map, src_xyz, src_mask, resolution, offsets, 0, 0)
+    ev.gather([0], [np.asarray(p, ev.np_dtype)])
+    return NeighborhoodStats(ev.stats[0])
 
 
 def compute_derivatives(ndt_map, src_xyz, src_mask, p, d1, d2, resolution,
@@ -513,9 +580,11 @@ def compute_derivatives(ndt_map, src_xyz, src_mask, p, d1, d2, resolution,
     tensors. ``stats`` evaluates against a frozen neighbourhood. With
     ``compute_hessian=False`` the Hessian is None; the same 28 sums are
     computed either way."""
-    ev = _Evaluator(ndt_map, src_xyz, src_mask, resolution, offsets, d1, d2)
-    sums = ev.sums(ev.params(np.asarray(p, ev.np_dtype)),
-                   None if stats is None else stats.packed).cpu().numpy()
+    ev = _single_lane(ndt_map, src_xyz, src_mask, resolution, offsets, d1, d2)
+    if stats is not None:
+        ev.stats = stats.packed[None]
+    sums = ev.sums(ev.params([np.asarray(p, ev.np_dtype)]), [0],
+                   stats is not None)[0].cpu().numpy()
     out = _unpack(sums) if compute_hessian else (sums[0], sums[1:7], None)
     return tuple(None if a is None else torch.from_numpy(np.asarray(a))
                  for a in out)
@@ -581,8 +650,8 @@ def _align_steps(p0, config: NDTConfig):
     back) and ``("eval", p, frozen)`` (the derivatives at p, from the last
     gathered neighbourhood if ``frozen``, else fresh through K1; the caller
     sends back host ``(score, grad, hess)``), and returns ``(p, iterations,
-    failed, score, evaluations, gathers)``. ``ndt_align`` drives one,
-    ``ndt_align_lanes`` one a lane in lockstep."""
+    failed, score, evaluations, gathers)``. ``_align_lanes`` drives one a
+    lane in lockstep."""
     dt = p0.dtype.type
     step_max = dt(config.step_size)
     step_min = dt(config.transformation_epsilon / 2.0)
@@ -716,136 +785,21 @@ def ndt_align(ndt_map: NDTMap, source: PointCloud, guess=None,
     ``ndt_align`` exactly, including its three neighbourhood modes: exact
     (fresh gather per evaluation), frozen line search (one gather per
     Newton iteration) and turbo (regather for ``regather_iterations``
-    iterations, then keep the last neighbourhood).
+    iterations, then keep the last neighbourhood). It is
+    ``ndt_align_lanes`` at one lane, over views of the map and source.
     """
-    d1, d2, _ = gauss_coefficients(config.resolution, config.outlier_ratio)
-    ev = _Evaluator(ndt_map, source.xyzi[:, :3], source.mask,
-                    config.resolution, _OFFSETS[config.search_method], d1,
-                    d2)
-    return align_with(ev, guess, config)
+    return _lane0(ndt_align_lanes(
+        NDTMap(*(f[None] for f in ndt_map)),
+        PointCloud(source.xyzi[None], source.mask[None]),
+        None if guess is None else [guess], config))
 
 
-@spanned("ndt.align")
-def align_with(ev, guess, config: NDTConfig) -> NDTResult:
-    """``ndt_align``'s host loop and result over an evaluator: anything
-    with ``dtype``, ``params(p)``, ``gather(params)``, ``derivs(p,
-    stats)``, ``n_src`` and ``syncs`` as ``_Evaluator`` has them
-    (``parallel/batch.sharded_align`` passes one over point shards)."""
-    steps = _align_steps(_guess_pose6(guess, ev.dtype), config)
-    stats = reply = None
-    try:
-        while True:
-            req = steps.send(reply)
-            if req[0] == "gather":
-                stats = ev.gather(ev.params(req[1]))
-                reply = None
-            else:
-                reply = ev.derivs(req[1], stats if req[2] else None)
-    except StopIteration as stop:
-        p, it, failed, score, evals, gathers = stop.value
-    pose6 = torch.from_numpy(p)
-    return NDTResult(
-        transform=se3.pose6_to_matrix(pose6),
-        converged=not failed,
-        iterations=it,
-        trans_probability=torch.from_numpy(np.asarray(score / ev.n_src)),
-        pose6=pose6,
-        evaluations=evals,
-        gathers=gathers,
-        host_syncs=ev.syncs,
-    )
-
-
-class _LaneEvaluator:
-    """The lockstep align's device side over B lanes: the lane map, the
-    sources [B, 3, N], the lanes' frozen neighbourhoods [B, 10, K*N], and
-    one batched gather and one batched evaluation a round."""
-
-    def __init__(self, ndt_map, src_xyz, src_mask, resolution, offsets,
-                 d1, d2):
-        self.map = ndt_map
-        self.dev = src_xyz.device
-        self.dtype = src_xyz.dtype
-        self.np_dtype = torch.empty((), dtype=self.dtype).numpy().dtype
-        self.B, self.N = src_mask.shape
-        self.xyz = src_xyz[..., :3].transpose(1, 2).contiguous()  # [B, 3, N]
-        self.mask = src_mask.contiguous()
-        self.offsets = torch.tensor(offsets, dtype=torch.int32).to(
-            self.dev, non_blocking=True)  # no wait on the map's build
-        self.inv_leaf = 1.0 / resolution
-        self.d12 = np.array([d1, d2], self.np_dtype)
-        self.cap = ndt_map.hash_table.shape[1]
-        self.stats = None  # [B, 10, K*N], a lane's row set by its gathers
-        self.n_src = None
-
-    def _upload(self, lanes, poses):
-        """Host poses of ``lanes`` -> the [L, 83] parameters and the lane
-        ids on the device (non-blocking copies: no host sync)."""
-        host = np.stack([np.concatenate(
-            [self.d12, _pose_matrix(p)[:3, :].ravel(), j.ravel(), h.ravel()])
-            for p, (j, h) in ((p, _angle_tables(p)) for p in poses)])
-        ids = torch.tensor(lanes, dtype=torch.int32)
-        return (torch.from_numpy(host).to(self.dev, non_blocking=True),
-                ids.to(self.dev, non_blocking=True))
-
-    @spanned("ndt.gather")
-    def gather(self, lanes, poses):
-        """The frozen neighbourhoods of ``lanes`` at their host poses: the
-        plain neighbour hash over the lanes at once, one K2 launch over the
-        lanes' pairs in a [B*cap, 16] table, one copy into the lanes'
-        rows."""
-        m = self.map
-        params, ids = self._upload(lanes, poses)
-        idx = ids.long()
-
-        def rows(t):  # the lanes' rows; ``lanes`` is sorted and distinct
-            return t if len(lanes) == self.B else t[idx]
-
-        h, nvid, okm = ndt_kernels.ndt_neighbor_hash_lanes_plain(
-            params, rows(self.xyz), rows(self.mask), rows(m.min_b),
-            rows(m.div), self.cap, self.inv_leaf, self.offsets)
-        h = h + ids[:, None] * self.cap
-        packed = ndt_kernels.ndt_gather_repack(
-            m.hash_table.view(self.B * self.cap, 16), h.reshape(-1),
-            nvid.reshape(-1), okm.reshape(-1))
-        if self.stats is None:
-            self.stats = torch.zeros((self.B, 10, h.shape[1]),
-                                     dtype=self.dtype, device=self.dev)
-        self.stats[idx] = packed.view(10, len(lanes), -1).transpose(0, 1)
-
-    @spanned("ndt.derivs")
-    def derivs(self, requests):
-        """Host (score, grad, hess) of every request ``(lane, pose, frozen)``
-        in one device-to-host copy: one K1 launch over the fresh ones and
-        one K3 launch over the frozen ones (the first round also carries
-        each lane's source point count)."""
-        m = self.map
-        sums = []
-        order = []
-        for frozen in (False, True):
-            group = [r for r in requests if r[2] == frozen]
-            if not group:
-                continue
-            lanes = [r[0] for r in group]
-            params, ids = self._upload(lanes, [r[1] for r in group])
-            if frozen:
-                sums.append(ndt_kernels.ndt_terms_packed_lanes(
-                    params, self.xyz, self.stats, ids))
-            else:
-                sums.append(ndt_kernels.ndt_terms_gathered_lanes(
-                    params, self.xyz, self.mask, m.hash_table, m.min_b,
-                    m.div, self.inv_leaf, self.offsets, ids))
-            order += lanes
-        flat = torch.cat(sums).reshape(-1)
-        if self.n_src is None:
-            counts = self.mask.sum(1, dtype=flat.dtype)
-            host = _to_host(torch.cat([flat, counts]))
-            flat, self.n_src = host[:-self.B], np.maximum(host[-self.B:], 1)
-        else:
-            flat = _to_host(flat)
-        rows = flat.reshape(len(order), ndt_kernels.N_TERMS)
-        return dict(zip(order, (_unpack(r) for r in rows)))
-
+def _lane0(r: NDTResult) -> NDTResult:
+    """Lane 0 of a lane result as one align's: python bool and ints, a
+    [4, 4] transform, a 0-d ``trans_probability``."""
+    return NDTResult(r.transform[0], bool(r.converged[0]),
+                     int(r.iterations[0]), r.trans_probability[0],
+                     r.pose6[0], *(int(f[0]) for f in r[5:]))
 
 
 @spanned("ndt.align")
@@ -853,25 +807,35 @@ def ndt_align_lanes(ndt_map: NDTMap, sources: PointCloud, guesses=None,
                     config: NDTConfig = NDTConfig()) -> NDTResult:
     """Align B sources (``xyzi [B, N, 4]``, ``mask [B, N]``) to the lanes
     of a lane map (``build_ndt_map_lanes``) from ``guesses [B, 4, 4]``
-    (identity when None), in lockstep: each lane runs ``ndt_align``'s host
-    logic (its own generator), and each round brings every running lane one
+    (identity when None), in lockstep (``_align_lanes``): each lane runs
+    its own host logic, and each round brings every running lane one
     evaluation in one K1 or K3 launch over those lanes, after one batched
     plain hash and one K2 launch for the lanes that regather, with one
     device-to-host copy of their sums: one host sync a round for all lanes.
     Finished lanes drop out of the launches.
 
     Returns an NDTResult with a leading B (tensors on the host): each lane's
-    pose, iterations, evaluations and gathers equal ``ndt_align`` of it
+    pose, iterations, evaluations and gathers equal its source aligned
     alone, bit for bit (as JAX's ``vmap`` masks finished lanes);
     ``host_syncs`` is the rounds, the same for every lane."""
-    B = sources.mask.shape[0]
     d1, d2, _ = gauss_coefficients(config.resolution, config.outlier_ratio)
     ev = _LaneEvaluator(ndt_map, sources.xyzi, sources.mask,
                         config.resolution, _OFFSETS[config.search_method],
                         d1, d2)
     if guesses is None:
-        guesses = [None] * B
+        guesses = [None] * ev.B
+    return _align_lanes(ev, guesses, config)
+
+
+def _align_lanes(ev, guesses, config: NDTConfig) -> NDTResult:
+    """The lockstep loop over an evaluator of ``_LaneEvaluator``'s protocol
+    (``dtype``, ``gather(lanes, poses)``, ``derivs(requests)``, ``n_src``
+    [B], ``host_syncs``; ``parallel/batch.sharded_align`` passes one over
+    point shards): one ``_align_steps`` generator a guess, and each round
+    one gather of the lanes that regather, then one evaluation of every
+    running lane. Returns the lanes' NDTResult (leading B)."""
     steps = [_align_steps(_guess_pose6(g, ev.dtype), config) for g in guesses]
+    B = len(steps)
     pending, done = {}, {}
 
     def advance(b, reply):
@@ -883,7 +847,6 @@ def ndt_align_lanes(ndt_map: NDTMap, sources: PointCloud, guesses=None,
 
     for b in range(B):
         advance(b, None)
-    rounds = 0
     while pending:
         regather = sorted(b for b, r in pending.items() if r[0] == "gather")
         if regather:
@@ -893,7 +856,6 @@ def ndt_align_lanes(ndt_map: NDTMap, sources: PointCloud, guesses=None,
         live = sorted(pending)
         replies = ev.derivs([(b, pending[b][1], pending[b][2])
                              for b in live])
-        rounds += 1
         for b in live:
             advance(b, replies[b])
 
@@ -913,7 +875,7 @@ def ndt_align_lanes(ndt_map: NDTMap, sources: PointCloud, guesses=None,
         pose6=torch.stack(pose6),
         evaluations=ints(4),
         gathers=ints(5),
-        host_syncs=torch.full((B,), rounds, dtype=torch.int32),
+        host_syncs=torch.full((B,), ev.host_syncs, dtype=torch.int32),
     )
 
 
